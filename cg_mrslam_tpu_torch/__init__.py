@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of ``cg_mrslam_tpu`` for NVIDIA Hopper.
 
 The package mirrors ``cg_mrslam_tpu``'s module layout; plain tensor code is
-PyTorch and the score-volume kernel is hand-written CUDA
-(``csrc/score_volume.cu``). It imports torch, numpy and the standard library
+PyTorch and the score-volume kernels K1 (contiguous window) and K2 (strided
+lattice) are hand-written CUDA (``csrc/score_volume.cu``). It imports torch, numpy and the standard library
 only.
 
 Precision is pinned at import: the normal equations are assembled at

@@ -2,11 +2,12 @@
 
 A state crosses as a flat dict of numpy arrays keyed by field path
 (``"graph.poses"``, ``"buffer.age"``, ``"my_id"``, ...). :func:`to_numpy`
-walks any tree of dataclasses whose leaves are tensors or array-likes, so
-it flattens the reference's ``SlamState`` as well as this package's; the
-reverse builds this package's dataclasses on a device. A ``Config`` crosses
-by constructing both packages' dataclasses from the same keyword
-arguments.
+walks any tree of dataclasses and named tuples whose leaves are tensors or
+array-likes, so it flattens the reference's ``SlamState``, ``MRState``
+(with its per-peer ``ClosureBuffer``) and messages (``Combo``,
+``ClosureList``, ``StarMsg``) as well as this package's; the reverse builds
+this package's types on a device. A ``Config`` crosses by constructing both
+packages' dataclasses from the same keyword arguments.
 """
 
 from __future__ import annotations
@@ -20,13 +21,24 @@ import torch
 from cg_mrslam_tpu_torch.pipeline.slam import SlamState
 
 
+def _fields(obj_or_cls) -> tuple:
+    if dataclasses.is_dataclass(obj_or_cls):
+        return tuple(f.name for f in dataclasses.fields(obj_or_cls))
+    return obj_or_cls._fields                                # a NamedTuple
+
+
+def _is_node(v) -> bool:
+    return dataclasses.is_dataclass(v) or hasattr(v, "_fields")
+
+
 def to_numpy(obj, prefix: str = "") -> dict:
-    """Flatten a dataclass tree into ``{field path: numpy array}``."""
+    """Flatten a tree of dataclasses / named tuples into ``{field path:
+    numpy array}``."""
     out = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        key = prefix + f.name
-        if dataclasses.is_dataclass(v):
+    for name in _fields(obj):
+        v = getattr(obj, name)
+        key = prefix + name
+        if _is_node(v):
             out.update(to_numpy(v, key + "."))
         elif isinstance(v, torch.Tensor):
             out[key] = v.detach().cpu().numpy()
@@ -45,17 +57,18 @@ def _leaf(a: np.ndarray, device) -> torch.Tensor:
 
 
 def from_numpy(cls, arrays: dict, device, prefix: str = ""):
-    """Build dataclass ``cls`` (a field tree of tensors) from
-    :func:`to_numpy`'s dict; floats become float32, integers int32."""
+    """Build ``cls`` (a dataclass or named tuple whose fields are tensors or
+    such types) from :func:`to_numpy`'s dict; floats become float32,
+    integers int32."""
     hints = typing.get_type_hints(cls)
     kw = {}
-    for f in dataclasses.fields(cls):
-        sub = hints[f.name]
-        key = prefix + f.name
-        if dataclasses.is_dataclass(sub):
-            kw[f.name] = from_numpy(sub, arrays, device, key + ".")
+    for name in _fields(cls):
+        sub = hints[name]
+        key = prefix + name
+        if isinstance(sub, type) and _is_node(sub):
+            kw[name] = from_numpy(sub, arrays, device, key + ".")
         else:
-            kw[f.name] = _leaf(arrays[key], device)
+            kw[name] = _leaf(arrays[key], device)
     return cls(**kw)
 
 
@@ -69,3 +82,15 @@ def state_from_numpy(arrays: dict, device) -> SlamState:
     return from_numpy(SlamState, arrays, device)
 
 
+def mr_state_from_numpy(arrays: dict, device):
+    """This package's ``MRState`` from :func:`to_numpy`'s dict of either
+    package's."""
+    from cg_mrslam_tpu_torch.mr.mrslam import MRState
+
+    return from_numpy(MRState, arrays, device)
+
+
+def message_from_numpy(cls, msg, device):
+    """A message of the reference (``Combo``, ``ClosureList``,
+    ``StarMsg``) as this package's ``cls``."""
+    return from_numpy(cls, to_numpy(msg), device)

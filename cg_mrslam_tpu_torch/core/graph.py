@@ -153,6 +153,50 @@ def add_edge(g: PoseGraph, i, j, z: torch.Tensor, info: torch.Tensor,
     )
 
 
+def remove_edges(g: PoseGraph, kill: torch.Tensor) -> PoseGraph:
+    """Mask out edges where ``kill`` is True (slots are not compacted)."""
+    return dataclasses.replace(g, emask=g.emask & ~kill)
+
+
+def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
+    """``inv`` with ``inv[order[k]] = k``."""
+    n = order.shape[0]
+    inv = torch.empty((n,), dtype=torch.int32, device=order.device)
+    inv[order.long()] = torch.arange(n, dtype=torch.int32,
+                                     device=order.device)
+    return inv
+
+
+def permute_vertices(g: PoseGraph, order: torch.Tensor) -> PoseGraph:
+    """Relabel vertex slots: slot ``k`` of the result is slot ``order[k]``
+    of ``g`` (``order`` a permutation of ``arange(N)``). Edge slots keep
+    their positions; only the endpoint indices are remapped, so per-edge
+    masks stay valid across the permutation (the transform that makes a
+    merged multi-robot graph block-tridiagonal for the chain band)."""
+    o = order.long()
+    inv = inverse_permutation(order)
+    return dataclasses.replace(
+        g, poses=g.poses[o], vmask=g.vmask[o], fixed=g.fixed[o],
+        e_ij=inv[g.e_ij.long()])
+
+
+def active_edge_mask(g: PoseGraph,
+                     include_condensed: bool = True) -> torch.Tensor:
+    """Edge mask for optimization: every stored edge, or without received
+    condensed edges (``e_level > 0``) when ``include_condensed`` is off."""
+    m = g.emask
+    if not include_condensed:
+        m = m & (g.e_level == LEVEL_DEFAULT)
+    return m
+
+
+def own_edge_mask(g: PoseGraph, my_id) -> torch.Tensor:
+    """Edges this robot created (the reference's own-edges rule for
+    condensed-graph construction: received information is not
+    re-condensed)."""
+    return g.emask & (g.e_owner == _value(g.e_owner, my_id))
+
+
 def first_k(score: torch.Tensor, k: int):
     """``lax.top_k`` with its tie order: the ``k`` largest entries of the
     last axis, and among equal values the lower index first

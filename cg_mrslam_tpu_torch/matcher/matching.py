@@ -1,9 +1,11 @@
 """Matching policy layer (reference ``ScanMatcher``).
 
-Port of ``cg_mrslam_tpu/matcher/matching.py``; this slice carries the close
+Port of ``cg_mrslam_tpu/matcher/matching.py``; it carries the close
 (odometry-refinement) mode. Loop-closure regions are matched in
-``pipeline/slam.py`` with the batched search; the hierarchical, global and
-verification modes wait for the multi-robot slice.
+``pipeline/slam.py`` with the batched search, and parked foreign vertices in
+``mr/mrslam.py:try_match_parked`` with ``search.hierarchical_search``; the
+global, hierarchical loop-closure and verification modes are not ported
+yet.
 """
 
 from __future__ import annotations

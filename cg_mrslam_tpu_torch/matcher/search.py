@@ -8,18 +8,21 @@ score = mean grid distance in meters (lower is better), out-of-grid points
 add 0 but still normalize the mean.
 
 Searches are batched: one call scores ``B`` (grid index, center, base)
-triples, so the regions of a keyframe share one kernel launch.
+triples, so the regions of a keyframe share one kernel launch, and every
+level of a hierarchical search is one launch.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from cg_mrslam_tpu_torch.core.graph import first_k
 from cg_mrslam_tpu_torch.ops.correlate import (
     SCORE_VOLUME,
+    SCORE_VOLUME_STRIDED,
     volume_cells,
     volume_plain,
 )
@@ -56,25 +59,49 @@ def _half_width(lattice: torch.Tensor) -> int:
     return (n - 1) // 2
 
 
+def _stride(lattice) -> tuple:
+    """``(n, s)`` of a symmetric lattice ``[-n..n]·s`` given on the host
+    (numpy): its values fix the kernel's static lattice."""
+    a = np.asarray(lattice)
+    n = (len(a) - 1) // 2
+    s = int(a[-1]) // n if n else 1
+    if len(a) % 2 != 1 or s < 1 or not np.array_equal(
+            a, np.arange(-n, n + 1) * s):
+        raise ValueError(f"not a symmetric strided lattice: {a}")
+    return n, s
+
+
 def score_volume_auto(grids: torch.Tensor, gidx: torch.Tensor,
                       centers: torch.Tensor, resolution: float,
                       points: torch.Tensor, valid: torch.Tensor,
                       bases: torch.Tensor, thetas: torch.Tensor,
-                      ty_cells: torch.Tensor, tx_cells: torch.Tensor
-                      ) -> torch.Tensor:
+                      ty_cells, tx_cells, *,
+                      kind: str = "contiguous") -> torch.Tensor:
     """Score volumes ``[B, T, Dy, Dx]`` for ``B`` searches — the reference's
-    backend dispatch for its ``"contiguous"`` kind (the strided kind waits
-    for the multi-robot slice), batched: search ``b`` scores ``points``
-    (``[P,2]`` shared or ``[B,P,2]``, mask ``valid [B,P]``) on
-    ``grids[gidx[b]]`` around ``centers[b]`` from ``bases[b]``.
-    ``ty_cells``/``tx_cells`` are contiguous ``[-r..r]`` lattices.
+    backend dispatch, batched: search ``b`` scores ``points`` (``[P,2]``
+    shared or ``[B,P,2]``, mask ``valid [B,P]``) on ``grids[gidx[b]]``
+    around ``centers[b]`` from ``bases[b]``. ``kind="contiguous"``: the
+    lattices are ``[-r..r]`` tensors (K1); ``kind="strided"``: they are
+    symmetric lattices ``[-n..n]·s`` given as numpy arrays (K2).
 
     CPU tensors take the plain version; CUDA tensors launch the CUDA
     kernel (or raise — there is no fallback)."""
     cells = grids.shape[-1]
     ix, iy, keep, count = volume_cells(centers, resolution, cells, points,
                                        valid, bases, thetas)
-    if grids.device.type == "cpu":
+    cpu = grids.device.type == "cpu"
+    if kind == "strided":
+        (ny, sy), (nx, sx) = _stride(ty_cells), _stride(tx_cells)
+        if cpu:
+            return volume_plain(grids, gidx, ix, iy, keep, count,
+                                torch.as_tensor(np.asarray(ty_cells)),
+                                torch.as_tensor(np.asarray(tx_cells)))
+        return SCORE_VOLUME_STRIDED(grids.contiguous(),
+                                    gidx.to(torch.int32), ix, iy, keep,
+                                    count, ny, nx, sy, sx)
+    if kind != "contiguous":
+        raise ValueError(f"unknown score-volume kind {kind!r}")
+    if cpu:
         return volume_plain(grids, gidx, ix, iy, keep, count, ty_cells,
                             tx_cells)
     return SCORE_VOLUME(grids.contiguous(), gidx.to(torch.int32), ix, iy,
@@ -173,3 +200,95 @@ def grid_search(grid: torch.Tensor, center: torch.Tensor,
                             y_span=y_span, topk=topk,
                             prior_weight=prior_weight)
     return SearchResult(poses=r.poses[0], scores=r.scores[0])
+
+
+def min_pool(grid: torch.Tensor, w: int) -> torch.Tensor:
+    """Separable ``w``-window min-pool of ``[C, C]`` with XLA's ``"SAME"``
+    padding (``(w-1)//2`` cells before, the rest after, padded with +inf),
+    rows first, then columns — the reference's ``reduce_window`` pair."""
+    lo = (w - 1) // 2
+    hi = w - 1 - lo
+    pool = torch.nn.functional.max_pool2d
+    neg = torch.nn.functional.pad(-grid[None, None], (0, 0, lo, hi),
+                                  value=float("-inf"))
+    neg = pool(neg, kernel_size=(w, 1), stride=1)
+    neg = torch.nn.functional.pad(neg, (lo, hi, 0, 0), value=float("-inf"))
+    return -pool(neg, kernel_size=(1, w), stride=1)[0, 0]
+
+
+def hierarchical_search(grid: torch.Tensor, center: torch.Tensor,
+                        resolution: float, points: torch.Tensor,
+                        valid: torch.Tensor, base: torch.Tensor, *,
+                        th_span: float, th_res: float, x_span: float,
+                        y_span: float, levels: int = 4, branch: int = 16,
+                        known_cap: float | None = None,
+                        min_known: float = 0.0,
+                        pool_coarse: bool = False) -> SearchResult:
+    """Coarse-to-fine search (reference ``hierarchicalSearch``): level 0
+    scans the full window at step ``2^(levels-1)`` and keeps ``branch``
+    candidates; each finer level rescans a ±previous-step window around
+    every survivor, all survivors in one batch. Returns poses ``[branch,
+    3]`` and scores ``[branch]``, best first.
+
+    ``known_cap`` scores on known cells only (grid < ``known_cap``) with a
+    coverage floor ``min_known``: the masked and the coverage volume are one
+    batch of two grids. ``pool_coarse`` scores every level coarser than
+    step 1 on the grid min-pooled over that step (:func:`min_pool`). On
+    the card every level is one launch of kernel K2."""
+    dev = grid.device
+    step0 = 2 ** (levels - 1)
+    c2 = center.reshape(1, 2)
+
+    def level_search(b, th_sp, th_st, x_sp, y_sp, cell_step, k, pool):
+        s = b.shape[0]
+        rel = make_lattice(th_sp, th_st, dev)
+        ny = max(1, int(round(y_sp / (resolution * cell_step))))
+        nx = max(1, int(round(x_sp / (resolution * cell_step))))
+        ty_np = np.arange(-ny, ny + 1, dtype=np.int32) * cell_step
+        tx_np = np.arange(-nx, nx + 1, dtype=np.int32) * cell_step
+        ty = torch.as_tensor(ty_np, device=dev)
+        tx = torch.as_tensor(tx_np, device=dev)
+        g = min_pool(grid, cell_step) if (pool and cell_step > 1) else grid
+        if known_cap is None:
+            grids = g[None]
+            gidx = torch.zeros((s,), dtype=torch.int32, device=dev)
+            bases = b
+        else:
+            known = (g < known_cap).to(g.dtype)
+            grids = torch.stack([g * known, known])
+            gidx = torch.arange(2, dtype=torch.int32, device=dev).repeat(s)
+            bases = torch.repeat_interleave(b, 2, dim=0)
+        nb = bases.shape[0]
+        vol = score_volume_auto(grids, gidx, c2.expand(nb, 2), resolution,
+                                points, valid[None].expand(nb, -1), bases,
+                                rel, ty_np, tx_np, kind="strided")
+        if known_cap is None:
+            raw = vol
+        else:
+            vol = vol.reshape((s, 2) + vol.shape[1:])
+            s_m, s_i = vol[:, 0], vol[:, 1]
+            # s_m = Σ_known dist / count, s_i = known_count / count: the
+            # mean over known cells is s_m / s_i, the coverage s_i
+            raw = s_m / torch.clamp(s_i, min=1e-6)
+            raw = torch.where(s_i >= min_known, raw,
+                              torch.full_like(raw, 1e3))
+        scores = raw + _offset_penalty(rel, ty, tx, resolution, TIEBREAK)
+        return volume_topk(scores, b, rel, ty, tx, resolution, k,
+                           report=raw)
+
+    res0 = level_search(base.reshape(1, 3), th_span, th_res * step0, x_span,
+                        y_span, step0, branch, pool_coarse)
+    poses, scores = res0.poses[0], res0.scores[0]
+
+    step = step0
+    for _ in range(1, levels):
+        prev = step
+        step //= 2
+        refined = level_search(poses, th_res * prev, th_res * step,
+                               resolution * prev, resolution * prev, step,
+                               1, pool_coarse)
+        poses = refined.poses[:, 0]
+        scores = refined.scores[:, 0]
+
+    order = torch.argsort(scores, stable=True)
+    return SearchResult(poses=poses[order], scores=scores[order])

@@ -1,16 +1,20 @@
-"""Correlative scan-match score volume: kernel K1 and its plain version.
+"""Correlative scan-match score volumes: kernels K1 and K2 and their plain
+version.
 
-Port of ``cg_mrslam_tpu/ops/correlate.py`` (``pallas_score_volume``, the TPU
-Pallas kernel ``_make_kernel_v3``). The work splits in two:
+Port of ``cg_mrslam_tpu/ops/correlate.py`` (``pallas_score_volume`` and
+``pallas_score_volume_strided``, the TPU Pallas kernel ``_make_kernel_v3``).
+The work splits in two:
 
 * :func:`volume_cells` — shared torch code: rotate and shift the moving
   points for every (batch entry, θ), take their grid cells, the keep mask
   (valid beam, and not in the same cell as the previous point — reference
   ``chargrid.cpp:242-258``) and the per-θ count ``max(kept, 1)``;
-* the gather-sum-divide over a contiguous ``±ry × ±rx`` window of integer
-  offsets, either by the hand-written CUDA kernel ``csrc/score_volume.cu``
-  (:data:`SCORE_VOLUME`, CUDA tensors only) or by :func:`volume_plain`,
-  plain PyTorch for any lattice.
+* the gather-sum-divide over a lattice of integer offsets, either by a
+  hand-written CUDA kernel of ``csrc/score_volume.cu`` (CUDA tensors only)
+  — :data:`SCORE_VOLUME` (K1) for a contiguous ``±ry × ±rx`` window,
+  :data:`SCORE_VOLUME_STRIDED` (K2) for a symmetric lattice of stride
+  ``sy, sx`` — or by :func:`volume_plain`, plain PyTorch for any lattice
+  (both kernels' plain version).
 
 Both sides get identical integer cells, so they differ only in the order
 of the float32 sums. One call scores a batch of (grid index, base) pairs —
@@ -138,69 +142,113 @@ def build() -> Path:
     return lib
 
 
-class ScoreVolumeKernel:
-    """Wrapper of the CUDA kernel: checks its inputs, allocates the output,
-    launches on the current stream and counts launches in
-    :attr:`launches` (one per launch, nothing else adds to it), and per
-    output shape ``(B, T, Dy, Dx)`` in :attr:`launches_by_shape`."""
+_LIB = None
+
+
+def load_library():
+    """Build (once) and load ``csrc/score_volume.cu``; both kernels' entry
+    points get their ``ctypes`` signatures."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.cg_score_volume.argtypes = ([ctypes.c_void_p] * 7
+                                        + [ctypes.c_int] * 7
+                                        + [ctypes.c_void_p])
+        lib.cg_score_volume.restype = ctypes.c_int
+        lib.cg_score_volume_strided.argtypes = ([ctypes.c_void_p] * 7
+                                                + [ctypes.c_int] * 9
+                                                + [ctypes.c_void_p])
+        lib.cg_score_volume_strided.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_inputs(grids, gidx, ix, iy, keep, count):
+    """Device, type, shape and contiguity of a score-volume launch's
+    inputs; raises on what the kernel does not take."""
+    dev = grids.device
+    if dev.type != "cuda":
+        raise ValueError("the score-volume kernels take CUDA tensors")
+    n_grids, cells, _ = grids.shape
+    bsz, n_theta, n_pts = ix.shape
+    want = {
+        "grids": (grids, torch.float32, (n_grids, cells, cells)),
+        "gidx": (gidx, torch.int32, (bsz,)),
+        "ix": (ix, torch.int32, (bsz, n_theta, n_pts)),
+        "iy": (iy, torch.int32, (bsz, n_theta, n_pts)),
+        "keep": (keep, torch.bool, (bsz, n_theta, n_pts)),
+        "count": (count, torch.float32, (bsz, n_theta)),
+    }
+    for name, (t, dt, shape) in want.items():
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: want {dt} {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if n_pts > MAX_POINTS:
+        raise ValueError(f"{n_pts} points > {MAX_POINTS}")
+
+
+class _Counted:
+    """Launch counts of one kernel wrapper: :attr:`launches` (one per
+    launch, nothing else adds to it) and, in :attr:`launches_by_shape`, per
+    output shape ``(B, T, Dy, Dx)`` — for K2 followed by its strides
+    ``(sy, sx)``."""
 
     def __init__(self) -> None:
         self.launches = 0
         self.launches_by_shape = collections.Counter()
-        self._lib = None
 
-    def load(self):
-        """Build (once) and load the library."""
-        if self._lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.cg_score_volume
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
-
-    def __call__(self, grids: torch.Tensor, gidx: torch.Tensor,
-                 ix: torch.Tensor, iy: torch.Tensor, keep: torch.Tensor,
-                 count: torch.Tensor, ry: int, rx: int) -> torch.Tensor:
-        dev = grids.device
-        if dev.type != "cuda":
-            raise ValueError("the score-volume kernel takes CUDA tensors")
-        n_grids, cells, _ = grids.shape
+    def _launch(self, fn, key, grids, gidx, ix, iy, keep, count, dy, dx,
+                *window):
         bsz, n_theta, n_pts = ix.shape
-        want = {
-            "grids": (grids, torch.float32, (n_grids, cells, cells)),
-            "gidx": (gidx, torch.int32, (bsz,)),
-            "ix": (ix, torch.int32, (bsz, n_theta, n_pts)),
-            "iy": (iy, torch.int32, (bsz, n_theta, n_pts)),
-            "keep": (keep, torch.bool, (bsz, n_theta, n_pts)),
-            "count": (count, torch.float32, (bsz, n_theta)),
-        }
-        for name, (t, dt, shape) in want.items():
-            if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
-                raise ValueError(
-                    f"{name}: want {dt} {shape} on {dev}, got {t.dtype} "
-                    f"{tuple(t.shape)} on {t.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-        if n_pts > MAX_POINTS:
-            raise ValueError(f"{n_pts} points > {MAX_POINTS}")
-        if ry < 0 or rx < 0 or (2 * ry + 1) * (2 * rx + 1) <= 0:
-            raise ValueError(f"bad window ry={ry} rx={rx}")
-        lib = self.load()
-        out = torch.empty((bsz, n_theta, 2 * ry + 1, 2 * rx + 1),
-                          dtype=torch.float32, device=dev)
+        dev = grids.device
+        out = torch.empty((bsz, n_theta, dy, dx), dtype=torch.float32,
+                          device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cg_score_volume(
-            grids.data_ptr(), gidx.data_ptr(), ix.data_ptr(), iy.data_ptr(),
-            keep.data_ptr(), count.data_ptr(), out.data_ptr(), n_grids, bsz,
-            n_theta, n_pts, cells, ry, rx, stream)
+        rc = fn(grids.data_ptr(), gidx.data_ptr(), ix.data_ptr(),
+                iy.data_ptr(), keep.data_ptr(), count.data_ptr(),
+                out.data_ptr(), grids.shape[0], bsz, n_theta, n_pts,
+                grids.shape[-1], *window, stream)
         if rc != 0:
             raise RuntimeError(f"score-volume kernel launch failed: "
                                f"cudaError {rc}")
         self.launches += 1
-        self.launches_by_shape[tuple(out.shape)] += 1
+        self.launches_by_shape[tuple(out.shape) + key] += 1
         return out
 
 
+class ScoreVolumeKernel(_Counted):
+    """K1's wrapper: checks its inputs, allocates the output and launches
+    on the current stream over the contiguous window ``±ry × ±rx``."""
+
+    def __call__(self, grids: torch.Tensor, gidx: torch.Tensor,
+                 ix: torch.Tensor, iy: torch.Tensor, keep: torch.Tensor,
+                 count: torch.Tensor, ry: int, rx: int) -> torch.Tensor:
+        _check_inputs(grids, gidx, ix, iy, keep, count)
+        if ry < 0 or rx < 0:
+            raise ValueError(f"bad window ry={ry} rx={rx}")
+        return self._launch(load_library().cg_score_volume, (), grids, gidx,
+                            ix, iy, keep, count, 2 * ry + 1, 2 * rx + 1, ry,
+                            rx)
+
+
+class ScoreVolumeStridedKernel(_Counted):
+    """K2's wrapper: the strided lattice ``(i - ny)·sy``, ``(j - nx)·sx``
+    (``i < 2ny+1``, ``j < 2nx+1``), only its kept offsets computed."""
+
+    def __call__(self, grids: torch.Tensor, gidx: torch.Tensor,
+                 ix: torch.Tensor, iy: torch.Tensor, keep: torch.Tensor,
+                 count: torch.Tensor, ny: int, nx: int, sy: int,
+                 sx: int) -> torch.Tensor:
+        _check_inputs(grids, gidx, ix, iy, keep, count)
+        if ny < 0 or nx < 0 or sy < 1 or sx < 1:
+            raise ValueError(f"bad lattice ny={ny} nx={nx} sy={sy} sx={sx}")
+        return self._launch(load_library().cg_score_volume_strided, (sy, sx),
+                            grids, gidx, ix, iy, keep, count, 2 * ny + 1,
+                            2 * nx + 1, ny, nx, sy, sx)
+
+
 SCORE_VOLUME = ScoreVolumeKernel()
+SCORE_VOLUME_STRIDED = ScoreVolumeStridedKernel()

@@ -36,6 +36,7 @@ from cg_mrslam_tpu_torch.matcher.search import grid_search_batched
 from cg_mrslam_tpu_torch.pipeline import closure as CL
 from cg_mrslam_tpu_torch.pipeline import graph_dist as GD
 from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+from cg_mrslam_tpu_torch.solver.chain import chain_order
 from cg_mrslam_tpu_torch.utils import se2
 
 # Per-region loop-closure hypotheses: top-TOPK_PER_DIR of the normal search
@@ -108,7 +109,7 @@ class StepInfo(NamedTuple):
     chi2: torch.Tensor             # [] post-optimization chi2
     n_edges: torch.Tensor          # [] — live edges (host bucket mirror)
     regions_dropped: torch.Tensor  # [] — components beyond max_regions
-    solver_backend: torch.Tensor   # [] — 0 dense (the only band ported)
+    solver_backend: torch.Tensor   # [] — 0 dense, 1 chain, 2 PCG
 
 
 def _const(values, device) -> torch.Tensor:
@@ -174,14 +175,22 @@ def _add_keyframe(state: SlamState, est, ranges, cfg: Config):
     return state, m.accepted
 
 
-def _covariance_gate(g: PoseGraph, cur, reps, rvalid, cfg: Config):
+def _covariance_gate(g: PoseGraph, cur, reps, rvalid, cfg: Config,
+                     order=None):
     """Mahalanobis gate on region representatives (reference
     ``checkCovariance``): marginal covariance with the gauge at the current
-    vertex, χ²(2) cut, distances deflated by the perception range."""
+    vertex, χ²(2) cut, distances deflated by the perception range. The
+    marginals go through the capacity-banded backend (``order`` = chain
+    permutation)."""
     n = g.poses.shape[0]
     regauged = dataclasses.replace(
         g, fixed=torch.arange(n, device=g.poses.device) == cur)
-    cov = gn.marginal_covariance_auto(regauged, reps)
+    cov = gn.marginal_covariance_auto(
+        regauged, reps, order=order, loop_cap=cfg.slam.loop_cap,
+        chain_cg_iters=cfg.slam.gate_cg_iters,
+        chain_cg_tol=cfg.slam.gate_cg_tol,
+        pcg_cg_iters=cfg.slam.gate_pcg_iters,
+        chol=True)  # the live path is batch-1: factorize, don't invert
     reps = reps.long()
     delta = g.poses[reps, :2] - row(g.poses, cur)[:2]       # [K,2]
     dist = torch.linalg.norm(delta, dim=-1)
@@ -331,19 +340,32 @@ def _match_regions(state: SlamState, est, cand, labels, regions,
 
 def keyframe_step(state: SlamState, est: torch.Tensor, ranges: torch.Tensor,
                   cfg: Config):
-    """One full keyframe: addDataSM → findConstraints → optimize(5), all on
-    the state's device with no host synchronization.
+    """One full keyframe: addDataSM → findConstraints → optimize(5) on the
+    state's device. In the dense band (capacity ≤ ``DENSE_MAX_CHOL``) it
+    makes no host synchronization; above it the chain band's runtime
+    check reads one flag per solver call.
 
-    The reference computes a chain permutation above ``DENSE_MAX`` and then
-    ignores it in the dense Cholesky band; this port runs that band only,
-    so it passes no permutation."""
+    Above ``DENSE_MAX`` every solver call gets the (owner, keyframe) slot
+    permutation that makes merged multi-robot graphs block-tridiagonal;
+    the batch-1 Cholesky band takes it and ignores it, as the reference
+    does."""
     state, sm_ok = _add_keyframe(state, est, ranges, cfg)
     g = state.graph
     dev = g.poses.device
     cur = (g.n_vertices - 1).long()
 
+    if g.poses.shape[-2] > gn.DENSE_MAX:
+        order = chain_order(state.v_owner, state.v_remote, g.vmask)
+    else:
+        order = None
+    solve_kw = dict(order=order, loop_cap=cfg.slam.loop_cap,
+                    chain_cg_iters=cfg.slam.chain_cg_iters,
+                    chain_cg_tol=cfg.slam.chain_cg_tol,
+                    pcg_iters=cfg.slam.pcg_cg_iters,
+                    chol=True)  # batch-1 live path
+
     # --- findConstraints (graph_slam.cpp:388-485) ---
-    g = gn.optimize_auto(g, cfg.slam.pre_optimize_iterations)
+    g = gn.optimize_auto(g, cfg.slam.pre_optimize_iterations, **solve_kw)
 
     dist = GD.bounded_distances(g, cur)
     sets = GD.candidate_sets(
@@ -373,7 +395,7 @@ def keyframe_step(state: SlamState, est: torch.Tensor, ranges: torch.Tensor,
     regions_dropped = torch.clamp(n_comp - torch.sum(regions.valid), min=0)
 
     rvalid = _covariance_gate(g, cur, regions.rep_vertex, regions.valid,
-                              cfg)
+                              cfg, order=order)
 
     cur_pts, cur_valid = S.points_from_ranges(state.scans, ranges)
     state = dataclasses.replace(state, graph=g)
@@ -414,14 +436,16 @@ def keyframe_step(state: SlamState, est: torch.Tensor, ranges: torch.Tensor,
     g = CL.add_accepted(g, buf, accept, owner=state.my_id)
 
     # --- optimize(5) (graph_slam.cpp:561-574) ---
-    g = gn.optimize_auto(g, cfg.slam.gn_iterations)
+    g = gn.optimize_auto(g, cfg.slam.gn_iterations, **solve_kw)
 
     state = dataclasses.replace(state, graph=g, buffer=buf2)
     info_out = StepInfo(
         pose=row(g.poses, cur), sm_accepted=sm_ok,
         closures_added=torch.sum(accept) + torch.sum(direct),
         chi2=chi2(g), n_edges=g.n_edges, regions_dropped=regions_dropped,
-        solver_backend=gn.auto_backend(g))
+        solver_backend=gn.auto_backend(g, order=order,
+                                       loop_cap=cfg.slam.loop_cap,
+                                       chol=True))
     return state, info_out
 
 

@@ -1,0 +1,173 @@
+"""SPD inverse as batched matmuls, and a dense PCG polish.
+
+Port of ``cg_mrslam_tpu/solver/spd.py``: the explicit inverse of a batched
+SPD matrix by recursive 2×2 block-Schur inversion down to ≤24×24 blocks
+(inverted by unpivoted Gauss–Jordan), Jacobi-equilibrated and polished by
+Newton–Schulz with a restart from the guaranteed-convergent seed
+``I/‖H‖∞``; :func:`pcg_refine` solves ``H X = B`` by dense CG with that
+inverse as preconditioner and warm start. The reference's
+``chol=False`` solver path (``solver/gauss_newton.py``) and the chain
+band's Woodbury capacitance solve are built on these.
+
+The reference's ``lax.while_loop`` tolerance exits become loops over the
+static budget in which a ``done`` flag freezes the state: the same
+iterates, and no host read per iteration. Every :data:`CHECK` iterations
+the host looks once whether anything is still running and stops early
+when nothing is (:func:`masked_loop`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_BASE = 24
+# iterations between the host's looks at a masked loop's done flags
+CHECK = 8
+
+
+def masked_loop(body, state, budget: int):
+    """``while cond(s): s = body(s)`` over at most ``budget`` iterations,
+    with the condition folded into ``body``: ``body(state) -> (new_state,
+    active)``, where ``active`` (a bool tensor broadcastable against each
+    state leaf's leading dims) says which entries took the step. Entries
+    that are not active keep their value — ``body`` applies the mask
+    itself. ``state`` is a tuple of tensors. Returns the final state."""
+    for k in range(budget):
+        state, active = body(state)
+        if (k + 1) % CHECK == 0 and not bool(torch.any(active)):
+            break
+    return state
+
+
+def _gauss_jordan_inverse(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of SPD ``[..., n, n]`` (n ≤ ``_BASE``) by Gauss–Jordan
+    without pivoting: n sequential vectorized elimination steps."""
+    n = a.shape[-1]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    off = 1.0 - eye                         # column k: 0 at row k, else 1
+    m = torch.cat([a, eye.expand(a.shape)], dim=-1)     # [..., n, 2n]
+    for k in range(n):
+        piv = m[..., k, :] / m[..., k, k, None]
+        col = m[..., :, k] * off[:, k]
+        m = torch.addcmul(m, col[..., :, None], piv[..., None, :],
+                          value=-1.0)
+        m[..., k, :] = piv
+    return m[..., :, n:]
+
+
+def _spd_inverse_rec(h: torch.Tensor) -> torch.Tensor:
+    n = h.shape[-1]
+    if n <= _BASE:
+        return _gauss_jordan_inverse(h)
+    m = n // 2
+    a = h[..., :m, :m]
+    bt = h[..., :m, m:]
+    b = h[..., m:, :m]
+    c = h[..., m:, m:]
+
+    ai = _spd_inverse_rec(a)
+    ai_bt = ai @ bt                                      # A⁻¹Bᵀ
+    s = c - b @ ai_bt                                    # Schur complement
+    si = _spd_inverse_rec(s)
+
+    tr = -(ai_bt @ si)                                   # top-right block
+    tl = ai - tr @ ai_bt.transpose(-1, -2)
+    out = torch.cat([torch.cat([tl, tr], dim=-1),
+                     torch.cat([tr.transpose(-1, -2), si], dim=-1)], dim=-2)
+    return 0.5 * (out + out.transpose(-1, -2))
+
+
+def _fro(r: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(r * r, dim=(-2, -1)))
+
+
+def spd_inverse(h: torch.Tensor, refine: int = 2, max_refine: int = 48,
+                tol: float | None = None) -> torch.Tensor:
+    """Explicit inverse of a batched SPD matrix ``[..., n, n]``: the
+    recursion on the Jacobi-equilibrated matrix, then Newton–Schulz
+    ``X ← X + X(I − HX)`` until the worst batch element's Frobenius
+    residual is ≤ ``tol`` (at least ``refine``, at most ``max_refine``
+    steps). An element whose residual grows restarts from ``I/‖H‖∞``."""
+    n = h.shape[-1]
+    if tol is None:
+        tol = 1e-4 if h.dtype == torch.float32 else 1e-11
+    d = torch.rsqrt(torch.clamp(torch.diagonal(h, dim1=-2, dim2=-1),
+                                min=1e-30))                  # [..., n]
+    hs = h * d[..., :, None] * d[..., None, :]
+    x = _spd_inverse_rec(hs)
+    eye = torch.eye(n, dtype=h.dtype, device=h.device)
+
+    def resid(xc):
+        r = eye - hs @ xc
+        return r, _fro(r)
+
+    r, rn = resid(x)
+    inf_norm = torch.amax(torch.sum(torch.abs(hs), dim=-1), dim=-1)
+    tau = torch.clamp(inf_norm, min=1.0)[..., None, None]
+    seed = eye / tau
+    r_seed = eye - hs / tau
+    rn_seed = _fro(r_seed)
+    inf = torch.full((), float("inf"), dtype=rn.dtype, device=rn.device)
+
+    def body(s):
+        k, xc, rc, rn_arr, prev_worst = s
+        worst = torch.amax(rn_arr)
+        improving = worst < 0.7 * prev_worst
+        go = (k < refine) | ((k < max_refine) & (worst > tol)
+                             & ((worst >= 0.25) | improving))
+        xn = xc + xc @ rc
+        xn = 0.5 * (xn + xn.transpose(-1, -2))
+        r2, rn2 = resid(xn)
+        diverged = ~(rn2 <= torch.clamp(rn_arr * 1.5, min=tol))
+        dd = diverged[..., None, None]
+        xn = torch.where(dd, seed, xn)
+        r2 = torch.where(dd, r_seed, r2)
+        rn2 = torch.where(diverged, rn_seed, rn2)
+        return (torch.where(go, k + 1, k), torch.where(go, xn, xc),
+                torch.where(go, r2, rc), torch.where(go, rn2, rn_arr),
+                torch.where(go, worst, prev_worst)), go
+
+    k0 = torch.zeros((), dtype=torch.int32, device=h.device)
+    _, x, _, _, _ = masked_loop(body, (k0, x, r, rn, inf),
+                                max(refine, max_refine))
+    return x * d[..., :, None] * d[..., None, :]
+
+
+def pcg_refine(h: torch.Tensor, b: torch.Tensor, minv: torch.Tensor,
+               max_iters: int = 64, tol: float = 1e-5) -> torch.Tensor:
+    """Solve ``H X = B`` (``b [..., n, R]``, R right-hand sides, each its
+    own CG) by dense preconditioned CG with ``minv`` as preconditioner and
+    warm start, until the worst relative residual is ≤ ``tol`` or
+    ``max_iters``. Breakdown guards zero the step instead of dividing by
+    ~0, so the result is finite for finite inputs."""
+    x = minv @ b
+    r = b - h @ x
+    z = minv @ r
+    p = z
+    rz = torch.sum(r * z, dim=-2)                        # [..., R]
+    bn = torch.clamp(torch.sum(b * b, dim=-2), min=1e-30)
+
+    def body(s):
+        x, rr, p, rz = s
+        rel = torch.sum(rr * rr, dim=-2) / bn
+        go = torch.amax(rel) > tol * tol
+        hp = h @ p
+        denom = torch.sum(p * hp, dim=-2)
+        ok = denom > 1e-30
+        alpha = torch.where(ok, rz / torch.where(ok, denom,
+                                                 torch.ones_like(denom)),
+                            torch.zeros_like(denom))
+        x2 = x + p * alpha[..., None, :]
+        r2 = rr - hp * alpha[..., None, :]
+        z2 = minv @ r2
+        rz2 = torch.sum(r2 * z2, dim=-2)
+        okb = torch.abs(rz) > 1e-30
+        beta = torch.where(okb, rz2 / torch.where(okb, rz,
+                                                  torch.ones_like(rz)),
+                           torch.zeros_like(rz))
+        p2 = z2 + p * beta[..., None, :]
+        return (torch.where(go, x2, x), torch.where(go, r2, rr),
+                torch.where(go, p2, p), torch.where(go, rz2, rz)), go
+
+    x, _, _, _ = masked_loop(body, (x, r, p, rz), max_iters)
+    return x

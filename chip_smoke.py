@@ -5,21 +5,45 @@
 Phases (nothing is caught; any failure ends the run with a traceback):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the score-volume kernel (``csrc/score_volume.cu``) with nvcc;
-3. the slice: the ``srslam`` default deployment (40 x 20 m hospital world,
-   seed 0, 2 loops, 360 beams, 10 m range, capacity 512/2048, close grid
-   30 m at 0.025 m, LC grid 70 m at 0.1 m) through ``SingleRobotSlam`` on
-   the card, up to capacity - 2 keyframes, with the kernel's launch counts
-   set to 0 just before and read just after; checks launches = 3 per
-   keyframe, finite chi2, at least one accepted closure, ATE below the
-   odometry-only ATE; prints ATE and keyframe latency p50/p99 per bucket;
-4. the kernel at the three main-path shapes (close, near, loop), on the
-   inputs of the first call of each shape in the slice whose volume depends
-   on where the points land (a grid that is not constant under kept points,
-   and a score that varies along both offset axes): against its plain
-   PyTorch version (rtol 1e-5, atol 1e-6), both timed with CUDA events;
-5. the first 20 keyframes replayed on the CPU (plain versions), poses
-   against the card's.
+2. build the score-volume kernels K1 and K2 (``csrc/score_volume.cu``, one
+   nvcc) and load them;
+3. ``srslam``: the single-robot default deployment (40 x 20 m hospital
+   world, seed 0, 2 loops, 360 beams, 10 m range, capacity 512/2048, close
+   grid 30 m at 0.025 m, LC grid 70 m at 0.1 m) through ``SingleRobotSlam``
+   on the card, up to capacity - 2 keyframes, with K1's launch counts set
+   to 0 just before and read just after; checks launches = 3 per keyframe,
+   finite chi2, at least one accepted closure, ATE below the odometry-only
+   ATE, every keyframe on the dense Cholesky band; prints ATE, the solver
+   backend per keyframe and keyframe latency p50/p99 per bucket;
+4. K1 at its three main-path shapes (close, near, loop), on the inputs of
+   the first call of each shape in phase 3 whose volume depends on where
+   the points land (a grid that is not constant under kept points, and a
+   score that varies along both offset axes): against its plain PyTorch
+   version (rtol 1e-5, atol 1e-6), both timed with CUDA events;
+5. the first 20 ``srslam`` keyframes replayed on the CPU (plain versions),
+   poses against the card's;
+6. ``cg_mrslam``: the in-process multi-robot default deployment (2 robots,
+   the same world and sensors, robot r on seed 7r, comm range 5 m,
+   ``MRConfig`` defaults) through ``MultiRobotSim`` on the card until both
+   robots stop keyframing at capacity - 4, with K1's and K2's counts set to
+   0 just before and read just after; checks foreign vertices on every
+   robot, at least one accepted inter-robot closure and one spliced star,
+   finite chi2, K2 launches = 4 per robot per exchange round, K1 launches =
+   3 per keyframe, keyframes on the dense Cholesky band and condense on the
+   chain or PCG band, per-robot ATE below the odometry-only ATE and a
+   median cross-robot pose agreement under 0.6 m (``tests/test_mrslam.py``'s
+   bar); prints those, condenses by band, keyframe and exchange-round time
+   p50/p99 (host clock, the card synchronized around each) and the split of
+   a round (CUDA events, no synchronization added);
+7. K2 at the level-0 and refine lattices of phase 6, on live captured
+   inputs, against the plain version (rtol 1e-5, atol 1e-6), timed;
+8. phase 6 replayed on the CPU (plain versions) up to the first exchange
+   round in which a robot accepts an inter-robot closure (so combos were
+   received, parked vertices matched by the global search into buffered
+   hypotheses, and those voted in): every round's outcomes — vertices,
+   foreign and parked vertices, buffered hypotheses, inter-robot closures,
+   star edges — equal to the card's, own keyframe poses within 1e-3 m /
+   rad.
 
 The card's line comes again just before the ``kernels`` JSON record, which is
 the line before last; the last line is
@@ -29,6 +53,7 @@ when no CUDA device is available.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -42,12 +67,22 @@ RTOL, ATOL = 1e-5, 1e-6
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_CPU_KEYFRAMES = 20
+# the CPU replay of phase 8 stops at the first inter-robot closure; it
+# fails if that comes later than this many exchange rounds
+MAX_CPU_ROUNDS = 60
+# tests/test_mrslam.py's bar on the median cross-robot disagreement
+MAX_AGREEMENT_M = 0.6
 # a volume that varies by less than this along an offset axis cannot tell a
 # kernel that reads the right cells from one that does not
 MIN_SPREAD = 100 * ATOL
 SHAPES = {"close": (65, 12, 12), "near": (17, 3, 3), "loop": (65, 15, 5)}
+# K2's lattices on the multi-robot path, by stride: level 0 of the
+# hierarchical search at step 8, the refine levels at steps 4, 2, 1
+STRIDED = {"level0": 8, "refine4": 4, "refine2": 2, "refine1": 1}
 REPLACES = "cg_mrslam_tpu/ops/correlate.py:189 (_make_kernel_v3 via " \
            "pallas_score_volume, :477; pallas_call at :454)"
+REPLACES_K2 = "cg_mrslam_tpu/ops/correlate.py:505 (pallas_score_volume_" \
+              "strided; body _make_kernel_v3 :189, pallas_call at :454)"
 
 
 def log(*a):
@@ -62,8 +97,15 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def shape_name(t, ry, rx) -> str:
-    return next(k for k, v in SHAPES.items() if v == (t, ry, rx))
+def k1_name(args) -> str:
+    """K1's call ``(grids, gidx, ix, iy, keep, count, ry, rx)`` by shape."""
+    key = (args[2].shape[1], args[6], args[7])
+    return next(k for k, v in SHAPES.items() if v == key)
+
+
+def k2_name(args) -> str:
+    """K2's call ``(..., ny, nx, sy, sx)`` by stride."""
+    return next(k for k, v in STRIDED.items() if v == args[8])
 
 
 def live_volumes(grids, gidx, keep) -> torch.Tensor:
@@ -91,27 +133,29 @@ class Capture:
     every score is the same constant, a kernel that ignored its offsets or
     misread its grid index would still agree with the plain version."""
 
-    def __init__(self, kernel):
+    def __init__(self, kernel, name_of, names):
         self.kernel = kernel
+        self.name_of = name_of
+        self.names = names
         self.calls = {}      # shape name -> kernel inputs
         self.pending = {}    # shape name -> (kernel inputs, output)
         self.keyframe = {}   # shape name -> keyframe it was captured at
 
     @property
     def armed(self) -> bool:
-        return len(self.calls) < len(SHAPES)
+        return len(self.calls) < len(self.names)
 
     def __call__(self, *args):
         out = self.kernel(*args)
-        name = shape_name(args[2].shape[1], args[6], args[7])
-        if name not in self.calls:
+        name = self.name_of(args)
+        if self.armed and name not in self.calls:
             self.pending[name] = (tuple(a.clone() if torch.is_tensor(a)
                                         else a for a in args), out.clone())
         return out
 
     def settle(self, keyframe: int) -> None:
-        """After a keyframe (outside its clock): keep the pending calls
-        that are live."""
+        """After a keyframe or an exchange round (outside its clock): keep
+        the pending calls that are live."""
         for name, (args, out) in self.pending.items():
             live = live_volumes(args[0], args[1], args[4])
             if min(spreads(out, live)) >= MIN_SPREAD:
@@ -120,21 +164,28 @@ class Capture:
         self.pending.clear()
 
 
-def srslam_setup():
+def deployment_config(n_robots: int):
+    """The CLI defaults of ``srslam`` (1 robot) and ``cg_mrslam`` (2)."""
     from cg_mrslam_tpu_torch.config import (Config, MatcherConfig, MRConfig,
                                             SlamConfig)
-    from cg_mrslam_tpu_torch.sim import world as W
 
-    cfg = Config(
+    return Config(
         slam=SlamConfig(linear_update=0.25, angular_update=math.pi / 4,
                         min_inliers=7, window_loop_closure=10,
                         inlier_threshold=2.0),
-        mr=MRConfig(n_robots=1),
+        mr=MRConfig(n_robots=n_robots, max_score_mr=0.15, min_inliers_mr=5,
+                    window_mr_loop_closure=10, sim_comm_range=5.0),
         close_matcher=MatcherConfig(extent=30.0, resolution=0.025,
                                     kernel_radius=0.2, max_score=0.15),
         lc_matcher=MatcherConfig(extent=70.0, resolution=0.1,
                                  kernel_radius=0.5, max_score=0.15),
         max_vertices=512, max_edges=2048)
+
+
+def srslam_setup():
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    cfg = deployment_config(1)
     world = W.hospital_world(40.0, 20.0, seed=0)
     wps = W.corridor_waypoints(40.0, 20.0, 0, 2)
     fov = 2 * np.pi * 0.75
@@ -202,14 +253,12 @@ def cuda_ms(fn, reps=20) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def check_kernel(kernel, args):
-    """Kernel vs plain on one captured call; returns the record."""
+def check_kernel(kernel, args, ty, tx):
+    """Kernel vs plain on one captured call over the lattice ``ty x tx``;
+    returns the record."""
     from cg_mrslam_tpu_torch.ops.correlate import volume_plain
 
-    grids, gidx, ix, iy, keep, count, ry, rx = args
-    dev = grids.device
-    ty = torch.arange(-ry, ry + 1, dtype=torch.int32, device=dev)
-    tx = torch.arange(-rx, rx + 1, dtype=torch.int32, device=dev)
+    grids, gidx, ix, iy, keep, count = args[:6]
     got = kernel(*args)
     want = volume_plain(grids, gidx, ix, iy, keep, count, ty, tx)
     torch.cuda.synchronize()
@@ -225,7 +274,7 @@ def check_kernel(kernel, args):
     plain_ms = cuda_ms(lambda: volume_plain(grids, gidx, ix, iy, keep,
                                             count, ty, tx), reps=5)
     b, t, p = ix.shape
-    n_off = (2 * ry + 1) * (2 * rx + 1)
+    n_off = ty.numel() * tx.numel()
     # the function's own inputs, each read once — the grids it scores,
     # points [P,2] f32, valid [B,P] bool, bases [B,3] f32, thetas [T] f32 —
     # and its output written once; the cells, keep mask and count are
@@ -236,7 +285,7 @@ def check_kernel(kernel, args):
     n_ops = int(keep.sum()) * n_off + b * t * n_off   # adds + divides
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return {"shape": [b, t, 2 * ry + 1, 2 * rx + 1], "points": p,
+    return {"shape": [b, t, ty.numel(), tx.numel()], "points": p,
             "grid_cells": grids.shape[-1], "grids": n_grids,
             "live_volumes": int(live.sum()),
             "spread_dy": spread_y, "spread_dx": spread_x,
@@ -246,12 +295,201 @@ def check_kernel(kernel, args):
             "library_ms": None}
 
 
+def lattice(n: int, s: int, dev) -> torch.Tensor:
+    return torch.arange(-n, n + 1, dtype=torch.int32, device=dev) * s
+
+
+def percentiles(ms) -> str:
+    v = np.asarray(ms)
+    return (f"p50 {np.percentile(v, 50):.2f} ms, p99 "
+            f"{np.percentile(v, 99):.2f} ms, max {v.max():.2f} ms "
+            f"(n={len(v)})")
+
+
+def outcomes(st) -> dict:
+    """A robot's multi-robot outcomes, read on the host."""
+    g = st.slam.graph
+    vm = g.vmask.cpu().numpy()
+    vo = st.slam.v_owner.cpu().numpy()
+    em = g.emask.cpu().numpy()
+    ij = g.e_ij.cpu().numpy()[em]
+    lvl = g.e_level.cpu().numpy()[em]
+    me = int(st.slam.my_id)
+    return {"vertices": int(g.n_vertices),
+            "foreign": int(((vo != me) & vm).sum()),
+            "parked": int(st.parked.sum()),
+            "hypotheses": int(st.peer_buf.mask.sum()),
+            "inter_closures": int(((vo[ij[:, 0]] != vo[ij[:, 1]])
+                                   & (lvl == 0)).sum()),
+            "star_edges": int((lvl > 0).sum())}
+
+
+def own_poses(st) -> np.ndarray:
+    """A robot's own keyframe poses in keyframe order."""
+    vm = st.slam.graph.vmask.cpu().numpy()
+    vo = st.slam.v_owner.cpu().numpy()
+    vr = st.slam.v_remote.cpu().numpy()
+    own = np.flatnonzero(vm & (vo == int(st.slam.my_id)))
+    return st.slam.graph.poses.cpu().numpy()[own[np.argsort(vr[own])]]
+
+
+def cross_err(host, guest) -> np.ndarray:
+    """Per foreign vertex of ``guest`` that ``host`` constrains (an edge
+    touches it): the distance between the host's estimate and the
+    owner's own (``tests/test_mrslam.py``'s cross-consistency check)."""
+    g = host.slam.graph
+    vm = g.vmask.cpu().numpy()
+    vo = host.slam.v_owner.cpu().numpy()
+    vr = host.slam.v_remote.cpu().numpy()
+    em = g.emask.cpu().numpy()
+    ij = g.e_ij.cpu().numpy()[em]
+    deg = np.bincount(ij.reshape(-1), minlength=len(vm))
+    gid = int(guest.slam.my_id)
+    gvr = guest.slam.v_remote.cpu().numpy()
+    gvo = guest.slam.v_owner.cpu().numpy()
+    gvm = guest.slam.graph.vmask.cpu().numpy()
+    gp = guest.slam.graph.poses.cpu().numpy()
+    hp = g.poses.cpu().numpy()
+    errs = []
+    for slot in np.flatnonzero(vm & (vo == gid) & (deg > 0)):
+        m = gvm & (gvo == gid) & (gvr == vr[slot])
+        if m.any():
+            errs.append(np.hypot(*(hp[slot, :2] - gp[np.argmax(m), :2])))
+    return np.asarray(errs)
+
+
+class Timed:
+    """Wraps ``fn`` to record its time in ms. With ``sync`` the card is
+    synchronized before and after the call and the host clock read (the
+    end-to-end steps: a keyframe, an exchange round); otherwise, on the
+    card, CUDA events are recorded around it on the current stream and
+    read after the run (``ms``), so the call adds no synchronization (the
+    steps inside a round)."""
+
+    def __init__(self, fn, sync: bool, cuda: bool):
+        self.fn, self.sync, self.cuda = fn, sync, cuda
+        self.records = []    # ms, or a (start, end) pair of CUDA events
+
+    def __call__(self, *a, **k):
+        if self.cuda and not self.sync:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.fn(*a, **k)
+            e1.record()
+            self.records.append((e0, e1))
+            return out
+        if self.sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        if self.sync:
+            torch.cuda.synchronize()
+        self.records.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    @property
+    def ms(self) -> list:
+        if self.cuda:
+            torch.cuda.synchronize()
+        return [r if isinstance(r, float) else r[0].elapsed_time(r[1])
+                for r in self.records]
+
+
+class TimedBand:
+    """Wraps a banded solver entry point of ``solver.gauss_newton`` to
+    record the time in ms (CUDA events on the card) of each call that
+    condense makes (``chol`` off) under the band it took, read from
+    ``BAND_CALLS``; ``chol`` calls (the keyframe's) pass through
+    untimed."""
+
+    def __init__(self, gn, name: str, cuda: bool):
+        self.gn, self.name = gn, name
+        self.fn = getattr(gn, name)
+        self.timed = Timed(self.fn, False, cuda)
+        self.bands = []
+
+    def __call__(self, *a, **k):
+        if k.get("chol", False):
+            return self.fn(*a, **k)
+        before = dict(self.gn.BAND_CALLS)
+        out = self.timed(*a, **k)
+        self.bands.append(next(
+            b for (e, b), v in self.gn.BAND_CALLS.items()
+            if e == self.name and v != before.get((e, b), 0)))
+        return out
+
+    @property
+    def ms(self) -> dict:
+        out = collections.defaultdict(list)
+        for band, ms in zip(self.bands, self.timed.ms):
+            out[band].append(ms)
+        return out
+
+
+def run_mr(device, max_ticks=None, capture=None):
+    """The ``cg_mrslam`` deployment through ``MultiRobotSim`` on
+    ``device``. Records, per exchange round, the tick and each robot's
+    outcomes and own poses, and the keyframe ticks of each robot. Returns
+    ``(sim, times, log)``: ``times`` maps each timed step to its times in
+    ms."""
+    from cg_mrslam_tpu_torch.mr import mrslam as MR
+    from cg_mrslam_tpu_torch.mr.sim import MultiRobotSim
+    from cg_mrslam_tpu_torch.sim import world as W
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    cfg = deployment_config(2)
+    world = W.hospital_world(40.0, 20.0, seed=0)
+    sim = MultiRobotSim(cfg, world, beams=360, max_range=10.0, seed=0,
+                        n_loops=2, odom_noise=(0.01, 0.004), width=40.0,
+                        height=20.0, device=device)
+    cuda = torch.device(device).type == "cuda"
+    log = {"rounds": [], "kf_ticks": [[0] for _ in range(sim.R)]}
+    keyframe, exchange = sim.keyframe, sim.exchange_round
+    timers = {"keyframe": Timed(keyframe, cuda, cuda),
+              "exchange_round": Timed(exchange, cuda, cuda),
+              "try_match_parked": Timed(MR.try_match_parked, False, cuda),
+              "build_star": Timed(MR.build_star, False, cuda)}
+    bands = [TimedBand(gn, name, cuda)
+             for name in ("optimize_auto", "marginal_covariance_auto")]
+
+    def on_keyframe(r, t):
+        log["kf_ticks"][r].append(t)
+        return timers["keyframe"](r, t)
+
+    def on_exchange(t, modality="sim"):
+        timers["exchange_round"](t, modality)
+        if capture is not None and capture.armed:
+            capture.settle(len(log["rounds"]))
+        log["rounds"].append((t, [outcomes(st) for st in sim.states],
+                              [own_poses(st) for st in sim.states]))
+
+    sim.keyframe, sim.exchange_round = on_keyframe, on_exchange
+    MR.try_match_parked = timers["try_match_parked"]
+    MR.build_star = timers["build_star"]
+    for tb in bands:
+        setattr(gn, tb.name, tb)
+    try:
+        sim.run(max_ticks=max_ticks)
+    finally:
+        MR.try_match_parked = timers["try_match_parked"].fn
+        MR.build_star = timers["build_star"].fn
+        for tb in bands:
+            setattr(gn, tb.name, tb.fn)
+    times = {name: t.ms for name, t in timers.items()}
+    for tb in bands:
+        for band, ms in tb.ms.items():
+            times[f"condense {tb.name} [{band}]"] = ms
+    return sim, times, log
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import cg_mrslam_tpu_torch.matcher.search as search
     from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
 
     # --- 1. the card ---
     card = card_line()
@@ -263,15 +501,16 @@ def main() -> int:
     # --- 2. build ---
     t0 = time.perf_counter()
     K.build()
-    K.SCORE_VOLUME.load()
-    log(f"build: score_volume.cu in {time.perf_counter() - t0:.2f} s")
+    K.load_library()
+    log(f"build: score_volume.cu (K1, K2) in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # --- 3. the slice on the card ---
     t0 = time.perf_counter()
     cfg, traj, fov = srslam_setup()
     log(f"sim: {len(traj.gt)} ticks, {traj.ranges.shape[1]} beams in "
         f"{time.perf_counter() - t0:.2f} s")
-    capture = Capture(K.SCORE_VOLUME)
+    capture = Capture(K.SCORE_VOLUME, k1_name, SHAPES)
     search.SCORE_VOLUME = capture
     K.SCORE_VOLUME.launches = 0
     K.SCORE_VOLUME.launches_by_shape.clear()
@@ -294,12 +533,16 @@ def main() -> int:
         f"sm_accepted {sum(bool(i.sm_accepted) for i in infos)}; "
         f"final chi2 {infos[-1].chi2:.4f}")
     log(f"slice: ATE {ate_slam:.4f} m vs odometry ATE {ate_odom:.4f} m")
+    backends = collections.Counter(i.solver_backend for i in infos)
+    log(f"slice: solver backend per keyframe {dict(backends)} (0 dense "
+        f"Cholesky, 1 chain, 2 PCG)")
     for b in sorted(lat):
         v = np.asarray(lat[b]) * 1e3
         log(f"slice: bucket {b}: {len(v)} keyframes, latency p50 "
             f"{np.percentile(v, 50):.2f} ms, p99 {np.percentile(v, 99):.2f} "
             f"ms, max {v.max():.2f} ms")
     assert n_kf >= 300, n_kf
+    assert set(backends) == {0}, backends
     assert 512 in lat and 256 in lat, sorted(lat)
     assert launches == 3 * n_kf, (launches, n_kf)
     assert all(np.isfinite(i.chi2) for i in infos)
@@ -310,7 +553,10 @@ def main() -> int:
     assert sorted(capture.calls) == sorted(SHAPES), sorted(capture.calls)
     records = []
     for name in SHAPES:
-        rec = check_kernel(K.SCORE_VOLUME, capture.calls[name])
+        args = capture.calls[name]
+        dev = args[0].device
+        rec = check_kernel(K.SCORE_VOLUME, args, lattice(args[6], 1, dev),
+                           lattice(args[7], 1, dev))
         key = tuple(rec["shape"])
         rec = {"name": f"score_volume[{name}]", "route": "cuda",
                "source": "cg_mrslam_tpu_torch/csrc/score_volume.cu",
@@ -339,6 +585,121 @@ def main() -> int:
         assert np.all(np.abs(d) <= 1e-3), (k, d)
     log(f"cpu replay: {len(cpu.infos)} keyframes agree with the card "
         f"(1e-3 m / 1e-3 rad) in {time.perf_counter() - t0:.2f} s")
+
+    # --- 6. the multi-robot deployment on the card ---
+    capture2 = Capture(K.SCORE_VOLUME_STRIDED, k2_name, STRIDED)
+    search.SCORE_VOLUME_STRIDED = capture2
+    for k in (K.SCORE_VOLUME, K.SCORE_VOLUME_STRIDED):
+        k.launches = 0
+        k.launches_by_shape.clear()
+    gn.BAND_CALLS.clear()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sim, times, mlog = run_mr("cuda", capture=capture2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_mr = K.SCORE_VOLUME.launches
+    k2_launches = K.SCORE_VOLUME_STRIDED.launches
+    k2_by = dict(K.SCORE_VOLUME_STRIDED.launches_by_shape)
+    bands = dict(gn.BAND_CALLS)
+    search.SCORE_VOLUME_STRIDED = K.SCORE_VOLUME_STRIDED
+    n_rounds = len(mlog["rounds"])
+    n_kf = [len(i) for i in sim.infos]
+    log(f"cg_mrslam: {sim.R} robots, {sum(n_kf)} keyframes {n_kf}, "
+        f"{n_rounds} exchange rounds in {wall:.2f} s; K1 launches {k1_mr}, "
+        f"K2 launches {k2_launches} ({k2_by})")
+    log(f"cg_mrslam: solver bands {bands}")
+    outs = [outcomes(st) for st in sim.states]
+    n_ticks = min(len(t.gt) for t in sim.trajs)
+    gap = np.hypot(*(sim.trajs[0].gt[:n_ticks, :2]
+                     - sim.trajs[1].gt[:n_ticks, :2]).T)
+    log(f"cg_mrslam: robots within the {sim.cfg.mr.sim_comm_range} m comm "
+        f"range on {int((gap < sim.cfg.mr.sim_comm_range).sum())} of "
+        f"{n_ticks} ticks")
+    for r, st in enumerate(sim.states):
+        kt = np.asarray(mlog["kf_ticks"][r])
+        tr = sim.trajs[r]
+        est = own_poses(st)
+        assert len(est) == len(kt), (len(est), len(kt))
+        a_slam, a_odom = ate(est, tr.gt[kt]), ate(tr.odom[kt], tr.gt[kt])
+        e = cross_err(st, sim.states[1 - r])
+        log(f"cg_mrslam: robot {r}: {outs[r]}; closures "
+            f"{int(sim.closure_stats[r])}; final chi2 "
+            f"{sim.infos[r][-1].chi2:.4f}; ATE {a_slam:.4f} m vs odometry "
+            f"ATE {a_odom:.4f} m; cross-robot agreement on {len(e)} "
+            f"vertices: median {np.median(e) if len(e) else float('nan'):.4f}"
+            f" m, max {e.max() if len(e) else float('nan'):.4f} m")
+        assert outs[r]["foreign"] > 0, outs
+        assert all(np.isfinite(i.chi2) for i in sim.infos[r])
+        assert {i.solver_backend for i in sim.infos[r]} == {0}
+        assert a_slam < a_odom, (r, a_slam, a_odom)
+        assert len(e) > 0 and np.median(e) < MAX_AGREEMENT_M, (r, e)
+    for name, ms in times.items():
+        clock = ("host clock, synchronized" if name in ("keyframe",
+                 "exchange_round") else "CUDA events")
+        log(f"cg_mrslam: {name} ({clock}): {percentiles(ms)}, total "
+            f"{sum(ms) / 1e3:.2f} s")
+    log(f"cg_mrslam: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    condenses = {b: bands.get(("optimize_auto", b), 0)
+                 for b in ("chain", "pcg")}
+    log(f"cg_mrslam: condenses by band {condenses}")
+    assert sum(o["inter_closures"] for o in outs) >= 1, outs
+    assert sum(o["star_edges"] for o in outs) >= 1, outs
+    assert k2_launches == 4 * sim.R * n_rounds, (k2_launches, n_rounds)
+    assert k1_mr == 3 * sum(n_kf), (k1_mr, n_kf)
+    assert sum(condenses.values()) == len(times["build_star"]) > 0
+    assert bands.get(("optimize_auto", "dense"), 0) == 2 * sum(n_kf)
+
+    # --- 7. K2 at the path's lattices ---
+    assert sorted(capture2.calls) == sorted(STRIDED), sorted(capture2.calls)
+    for name, stride in STRIDED.items():
+        args = capture2.calls[name]
+        dev = args[0].device
+        rec = check_kernel(K.SCORE_VOLUME_STRIDED, args,
+                           lattice(args[6], stride, dev),
+                           lattice(args[7], stride, dev))
+        key = tuple(rec["shape"]) + (stride, stride)
+        rec = {"name": f"score_volume_strided[{name}]", "route": "cuda",
+               "source": "cg_mrslam_tpu_torch/csrc/score_volume.cu",
+               "replaces": REPLACES_K2, "launches": k2_by[key],
+               "launches_per_round": k2_by[key] / n_rounds,
+               "captured_at_round": capture2.keyframe[name],
+               "stride": stride, **rec}
+        assert k2_by[key] == sim.R * n_rounds, (name, k2_by[key])
+        records.append(rec)
+        log(f"kernel {rec['name']} {rec['shape']} (round "
+            f"{rec['captured_at_round']}, {rec['live_volumes']} live "
+            f"volumes, spread {rec['spread_dy']:.4g}/{rec['spread_dx']:.4g}):"
+            f" {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound "
+            f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}), max_abs_err "
+            f"{rec['max_abs_err']:.3g}")
+
+    # --- 8. the exchange rounds up to the first inter-robot closure, on
+    # the CPU ---
+    t0 = time.perf_counter()
+    first = next((k for k, (_, o, _) in enumerate(mlog["rounds"])
+                  if any(x["inter_closures"] for x in o)), None)
+    assert first is not None and first < MAX_CPU_ROUNDS, first
+    _, _, clog = run_mr("cpu", max_ticks=mlog["rounds"][first][0] + 1)
+    assert len(clog["rounds"]) == first + 1, (len(clog["rounds"]), first)
+    for k, ((tc, oc, pc), (tg, og, pg)) in enumerate(
+            zip(clog["rounds"], mlog["rounds"])):
+        assert tc == tg and oc == og, (k, tc, oc, tg, og)
+        for a, b in zip(pc, pg):
+            d = a.astype(np.float64) - b
+            d[:, 2] = (d[:, 2] + np.pi) % (2 * np.pi) - np.pi
+            assert np.all(np.abs(d) <= 1e-3), (k, np.abs(d).max())
+    rounds = [o for _, o, _ in clog["rounds"]]
+    assert all(o["foreign"] > 0 for o in rounds[0]), rounds[0]
+    # a hypothesis enters a peer buffer only where the global search
+    # matched a parked vertex (a vertex is parked and tried in one round)
+    assert any(o["hypotheses"] > 0 for r in rounds for o in r), rounds
+    assert any(o["inter_closures"] > 0 for o in rounds[-1]), rounds[-1]
+    log(f"cpu replay: {first + 1} exchange rounds (ticks "
+        f"{clog['rounds'][0][0]}..{clog['rounds'][-1][0]}), up to the first "
+        f"inter-robot closure, agree with the card; outcomes "
+        f"{rounds[-1]} in {time.perf_counter() - t0:.2f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

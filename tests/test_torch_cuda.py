@@ -1,6 +1,7 @@
-"""Card-only tests of the PyTorch/CUDA port: the score-volume kernel against
-its plain version, its launch count and input checks, and a keyframe step
-with no host synchronization. Every test carries the ``cuda`` marker and
+"""Card-only tests of the PyTorch/CUDA port: the score-volume kernels K1 and
+K2 against their plain version, their launch counts and input checks, the
+solver's masked loops and condense on the card against the CPU, and a
+keyframe step with no host synchronization. Every test carries the ``cuda`` marker and
 skips where there is no NVIDIA GPU.
 
 This file imports neither JAX nor ``cg_mrslam_tpu``, so it also runs on a
@@ -83,6 +84,182 @@ def test_kernel_rejects_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         K.SCORE_VOLUME(grids, gidx, ix.transpose(1, 2).contiguous()
                        .transpose(1, 2), iy, keep, count, 2, 2)
+
+
+# K2 at the multi-robot path's lattices (T, ny, nx, stride, batch): level 0
+# of the hierarchical search (the known-cap pair of grids) and the three
+# refine levels (48 survivors x 2 grids)
+STRIDED = [(13, 6, 12, 8, 2), (5, 2, 2, 4, 96), (5, 2, 2, 2, 96),
+           (5, 2, 2, 1, 96)]
+
+
+@pytest.mark.parametrize("t,ny,nx,stride,bsz", STRIDED)
+def test_strided_kernel_matches_plain(dev, t, ny, nx, stride, bsz):
+    grids, gidx, (ix, iy, keep, count) = _inputs(dev, t, 700, 0.1, bsz,
+                                                 seed=stride)
+    before = K.SCORE_VOLUME_STRIDED.launches
+    got = K.SCORE_VOLUME_STRIDED(grids, gidx, ix, iy, keep, count, ny, nx,
+                                 stride, stride)
+    assert K.SCORE_VOLUME_STRIDED.launches == before + 1
+    ty = torch.arange(-ny, ny + 1, dtype=torch.int32, device=dev) * stride
+    tx = torch.arange(-nx, nx + 1, dtype=torch.int32, device=dev) * stride
+    want = K.volume_plain(grids, gidx, ix, iy, keep, count, ty, tx)
+    torch.cuda.synchronize()
+    assert got.shape == (bsz, t, 2 * ny + 1, 2 * nx + 1)
+    # the comparison can fail: scores vary along both offset axes
+    assert float((want.amax(2) - want.amin(2)).max()) > 100 * ATOL
+    assert float((want.amax(3) - want.amin(3)).max()) > 100 * ATOL
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_strided_kernel_rejects_bad_inputs(dev):
+    grids, gidx, (ix, iy, keep, count) = _inputs(dev, 5, 200, 0.1, 2)
+    with pytest.raises(ValueError, match="bad lattice"):
+        K.SCORE_VOLUME_STRIDED(grids, gidx, ix, iy, keep, count, 2, 2, 0, 1)
+    with pytest.raises(ValueError, match="keep"):
+        K.SCORE_VOLUME_STRIDED(grids, gidx, ix, iy, keep.to(torch.uint8),
+                               count, 2, 2, 4, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.SCORE_VOLUME_STRIDED(grids.cpu(), gidx, ix, iy, keep, count, 2, 2,
+                               4, 4)
+
+
+def test_hierarchical_search_launches_k2_per_level(dev):
+    """Every level of a known-cap search is one K2 launch (B = 2 at level
+    0, 2 x branch after), and the card's result is the CPU's."""
+    from cg_mrslam_tpu_torch.matcher import search as TS
+
+    grids, _, _ = _inputs(dev, 1, 300, 0.1, 1, seed=7)
+    rng = np.random.default_rng(7)
+    pts = torch.as_tensor(rng.uniform(-8, 8, (360, 2)), dtype=torch.float32)
+    valid = torch.ones(360, dtype=torch.bool)
+    base = torch.tensor([0.2, -0.1, 0.05])
+    kw = dict(th_span=0.3, th_res=0.025, x_span=2.0, y_span=1.5, levels=4,
+              branch=16, known_cap=0.3 * 0.999, min_known=0.3,
+              pool_coarse=True)
+    before = K.SCORE_VOLUME_STRIDED.launches
+    by_shape = dict(K.SCORE_VOLUME_STRIDED.launches_by_shape)
+    got = TS.hierarchical_search(grids[0], torch.zeros(2, device=dev), 0.1,
+                                 pts.to(dev), valid.to(dev), base.to(dev),
+                                 **kw)
+    assert K.SCORE_VOLUME_STRIDED.launches == before + 4
+    new = {k: v - by_shape.get(k, 0)
+           for k, v in K.SCORE_VOLUME_STRIDED.launches_by_shape.items()
+           if v != by_shape.get(k, 0)}
+    # keys (B, T, Dy, Dx, sy, sx): level 0 at stride 8, refines at 4, 2, 1
+    assert sorted((k[0],) + k[-2:] for k in new) == [
+        (2, 8, 8), (32, 1, 1), (32, 2, 2), (32, 4, 4)], new
+    assert all(k[1:4] == (5, 5, 5) for k in new if k[0] == 32), new
+    want = TS.hierarchical_search(grids[0].cpu(), torch.zeros(2), 0.1, pts,
+                                  valid, base, **kw)
+    # survivors as a sorted score list: a float32 near-tie may order two
+    # of them differently without changing the set
+    torch.testing.assert_close(torch.sort(got.scores.cpu()).values,
+                               torch.sort(want.scores).values, rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(got.poses[0].cpu(), want.poses[0], rtol=0,
+                               atol=1e-5)
+
+
+def test_masked_loop_on_the_card_matches_cpu(dev):
+    """Per-entry exits of ``masked_loop`` land on the same iteration on
+    the card as on the CPU."""
+    from cg_mrslam_tpu_torch.solver.spd import masked_loop
+
+    def body(s):
+        x, n = s
+        go = (x - 2.0).abs() > 1e-3
+        return (torch.where(go, 0.9 * x + 0.2, x), n + go.to(n.dtype)), go
+
+    # entries near the fixed point 2 stop early, the far ones run out the
+    # budget (61: not a multiple of the host's look every 8 iterations)
+    x0 = torch.linspace(1.995, 40.0, 37)
+    n0 = torch.zeros(37, dtype=torch.int32)
+    for budget in (64, 61):
+        want = masked_loop(body, (x0, n0), budget)
+        got = masked_loop(body, (x0.to(dev), n0.to(dev)), budget)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(got[1].cpu(), want[1])
+        assert int(want[1].min()) < 24 and int(want[1].max()) == budget
+
+
+def _merged_graph(n_own, n_loops, cap_v=300, cap_e=600, seed=0):
+    """One robot's chain (slots in keyframe order, a foreign edgeless
+    vertex after every 9th) plus ``n_loops`` loop edges, all owned by
+    robot 0; returns the graph, owner and keyframe index per slot."""
+    from cg_mrslam_tpu_torch.core import graph as G
+
+    rng = np.random.default_rng(seed)
+    g = G.empty(cap_v, cap_e, "cpu")
+    poses = np.cumsum(rng.normal(0, 0.5, (n_own, 3)) * [1.0, 0.4, 0.2], 0)
+    vo, vr, own = np.zeros(cap_v, np.int32), np.zeros(cap_v, np.int32), []
+    slot = 0
+    for k in range(n_own):
+        if k % 9 == 8:
+            g = G.add_vertex(g, torch.as_tensor(rng.normal(0, 5, 3),
+                                                dtype=torch.float32))
+            vo[slot], vr[slot] = 1, k
+            slot += 1
+        g = G.add_vertex(g, torch.as_tensor(poses[k], dtype=torch.float32),
+                         fixed=(k == 0))
+        vr[slot] = k
+        own.append(slot)
+        slot += 1
+
+    def rel(i, j):
+        c, s = np.cos(poses[i, 2]), np.sin(poses[i, 2])
+        d = poses[j] - poses[i]
+        return [c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                (d[2] + np.pi) % (2 * np.pi) - np.pi]
+
+    info = torch.tensor([100.0, 0.0, 0.0, 100.0, 0.0, 1000.0])
+    pairs = [(k, k + 1) for k in range(n_own - 1)]
+    pairs += [tuple(sorted(rng.choice(n_own, 2, replace=False)))
+              for _ in range(n_loops)]
+    for i, j in pairs:
+        z = torch.as_tensor(np.asarray(rel(i, j)) + rng.normal(0, 0.01, 3),
+                            dtype=torch.float32)
+        g = G.add_edge(g, own[i], own[j], z, info, owner=0)
+    return g, torch.as_tensor(vo), torch.as_tensor(vr), own
+
+
+@pytest.mark.parametrize("n_loops,band", [(12, "chain"), (90, "pcg")])
+def test_condense_on_the_card_matches_cpu(dev, n_loops, band):
+    """Condense above DENSE_MAX (the path's capacity band: chain where the
+    own-edge graph is chainable under the permutation, PCG past
+    ``loop_cap``) on the card against the CPU.
+    Bars as in ``tests/test_torch_mr.py``: z 1e-4, information 2e-2."""
+    import dataclasses
+
+    from cg_mrslam_tpu_torch.core import graph as G
+    from cg_mrslam_tpu_torch.mr import condensed as CG
+    from cg_mrslam_tpu_torch.solver import chain as CH
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    g, vo, vr, own = _merged_graph(240, n_loops)
+    boundary = torch.tensor([own[5], own[60], own[150], own[230], 0],
+                            dtype=torch.int32)
+    valid = torch.tensor([True, True, True, True, False])
+    stars = []
+    for d in ("cpu", dev):
+        gd = G.PoseGraph(*(t.to(d) for t in (getattr(g, f.name) for f in
+                                              dataclasses.fields(g))))
+        order = CH.chain_order(vo.to(d), vr.to(d), gd.vmask)
+        b, v = boundary.to(d), valid.to(d)
+        gn.BAND_CALLS.clear()
+        stars.append(CG.condense(gd, b, v, CG.select_gauge_centroid(gd, b, v),
+                                 G.own_edge_mask(gd, 0), order))
+        assert gn.BAND_CALLS == {("optimize_auto", band): 1,
+                                 ("marginal_covariance_auto", band): 1}
+    want, got = stars
+    assert torch.equal(got.valid.cpu(), want.valid)
+    keep = want.valid
+    torch.testing.assert_close(got.z.cpu()[keep], want.z[keep], rtol=0,
+                               atol=1e-4)
+    w = want.info[keep]
+    torch.testing.assert_close(got.info.cpu()[keep], w, rtol=2e-2,
+                               atol=2e-2 * float(w.abs().max()))
 
 
 def test_keyframe_step_makes_no_host_sync(dev):

@@ -1,5 +1,6 @@
-"""Parity of the port's dense Cholesky band (``solver/gauss_newton.py``)
-with ``cg_mrslam_tpu`` run in float32, on the committed parity fixtures.
+"""Parity of the port's dense Cholesky band (``solver/gauss_newton.py``,
+``chol=True``) with ``cg_mrslam_tpu`` run in float32, on the committed
+parity fixtures. The other bands: ``test_torch_solver_bands.py``.
 
 Tolerances and why:
 
@@ -68,7 +69,7 @@ def test_gn_chi2_per_iteration(name):
     np.testing.assert_allclose(float(tchi2(tg)), float(jchi2(jg)), rtol=1e-5)
     for k, oracle in enumerate(EXPECTED[name]["raw"]):
         jg = jgn.optimize(jg, 1, chol=True)
-        tg = tgn.optimize(tg, 1)
+        tg = tgn.optimize(tg, 1, chol=True)
         got, want = float(tchi2(tg)), float(jchi2(jg))
         assert abs(got - want) <= 1e-3 * abs(want), (name, k, got, want)
         assert abs(got - oracle) <= 0.01 * abs(oracle), (name, k, got,
@@ -82,10 +83,11 @@ def test_marginal_covariance(name):
     n = int(jg.n_vertices)
     q = np.array([1, n // 3, n // 2, n - 1], np.int32)
     want = jgn.marginal_covariance(jg, jnp.asarray(q), chol=True)
-    got = tgn.marginal_covariance(tg, torch.as_tensor(q))
+    got = tgn.marginal_covariance(tg, torch.as_tensor(q), chol=True)
     assert got.shape == (4, 3, 3)
     _close(got, want, 1e-3, 1e-4)
-    via_auto = tgn.marginal_covariance_auto(tg, torch.as_tensor(q))
+    via_auto = tgn.marginal_covariance_auto(tg, torch.as_tensor(q),
+                                            chol=True)
     np.testing.assert_array_equal(npy(via_auto), npy(got))
 
 
@@ -97,19 +99,20 @@ def test_cholesky_nan_on_indefinite():
 
 
 def test_bands():
-    """Up to DENSE_MAX_CHOL the auto entry points are the dense band;
-    above it they raise — the chain/PCG band is a later slice."""
+    """With ``chol`` the auto entry points are the dense Cholesky band up
+    to DENSE_MAX_CHOL; above it they take the chain band (an empty graph
+    is trivially chainable) and no longer raise, as in the reference."""
     assert (tgn.DENSE_MAX, tgn.DENSE_MAX_CHOL, tgn.PCG_MIN) == (
         jgn.DENSE_MAX, jgn.DENSE_MAX_CHOL, jgn.PCG_MIN)
     _, tg = _load("ring60")
-    a = tgn.optimize_auto(tg, 2)
-    b = tgn.optimize(tg, 2)
+    a = tgn.optimize_auto(tg, 2, chol=True)
+    b = tgn.optimize(tg, 2, chol=True)
     np.testing.assert_array_equal(npy(a.poses), npy(b.poses))
-    assert int(tgn.auto_backend(tg)) == 0
+    assert int(tgn.auto_backend(tg, chol=True)) == 0
     big = TG.empty(tgn.DENSE_MAX_CHOL + 1, 8, CPU)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tgn.optimize_auto(big, 1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tgn.marginal_covariance_auto(big, torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        tgn.auto_backend(big)
+    out = tgn.optimize_auto(big, 1, chol=True)
+    assert torch.isfinite(out.poses).all()
+    cov = tgn.marginal_covariance_auto(big, torch.zeros(1, dtype=torch.int32),
+                                       chol=True)
+    assert torch.isfinite(cov).all()
+    assert int(tgn.auto_backend(big, chol=True)) == 1
