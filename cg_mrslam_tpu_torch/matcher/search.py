@@ -24,6 +24,7 @@ from cg_mrslam_tpu_torch.ops.correlate import (
     SCORE_VOLUME,
     SCORE_VOLUME_STRIDED,
     volume_cells,
+    volume_pair_plain,
     volume_plain,
 )
 
@@ -76,13 +77,17 @@ def score_volume_auto(grids: torch.Tensor, gidx: torch.Tensor,
                       points: torch.Tensor, valid: torch.Tensor,
                       bases: torch.Tensor, thetas: torch.Tensor,
                       ty_cells, tx_cells, *,
-                      kind: str = "contiguous") -> torch.Tensor:
+                      kind: str = "contiguous",
+                      known_cap: float | None = None) -> torch.Tensor:
     """Score volumes ``[B, T, Dy, Dx]`` for ``B`` searches — the reference's
     backend dispatch, batched: search ``b`` scores ``points`` (``[P,2]``
     shared or ``[B,P,2]``, mask ``valid [B,P]``) on ``grids[gidx[b]]``
     around ``centers[b]`` from ``bases[b]``. ``kind="contiguous"``: the
     lattices are ``[-r..r]`` tensors (K1); ``kind="strided"``: they are
-    symmetric lattices ``[-n..n]·s`` given as numpy arrays (K2).
+    symmetric lattices ``[-n..n]·s`` given as numpy arrays (K2). A strided
+    search with ``known_cap`` scores the pair of ``grid·known`` and
+    ``known`` (``known = grid < known_cap``) in one pass: ``[B, 2, T, Dy,
+    Dx]``.
 
     CPU tensors take the plain version; CUDA tensors launch the CUDA
     kernel (or raise — there is no fallback)."""
@@ -93,12 +98,17 @@ def score_volume_auto(grids: torch.Tensor, gidx: torch.Tensor,
     if kind == "strided":
         (ny, sy), (nx, sx) = _stride(ty_cells), _stride(tx_cells)
         if cpu:
-            return volume_plain(grids, gidx, ix, iy, keep, count,
-                                torch.as_tensor(np.asarray(ty_cells)),
-                                torch.as_tensor(np.asarray(tx_cells)))
+            lat = (torch.as_tensor(np.asarray(ty_cells)),
+                   torch.as_tensor(np.asarray(tx_cells)))
+            if known_cap is None:
+                return volume_plain(grids, gidx, ix, iy, keep, count, *lat)
+            return volume_pair_plain(grids, gidx, ix, iy, keep, count, *lat,
+                                     known_cap)
         return SCORE_VOLUME_STRIDED(grids.contiguous(),
                                     gidx.to(torch.int32), ix, iy, keep,
-                                    count, ny, nx, sy, sx)
+                                    count, ny, nx, sy, sx, known_cap)
+    if known_cap is not None:
+        raise ValueError("known_cap needs the strided kind")
     if kind != "contiguous":
         raise ValueError(f"unknown score-volume kind {kind!r}")
     if cpu:
@@ -231,10 +241,11 @@ def hierarchical_search(grid: torch.Tensor, center: torch.Tensor,
     3]`` and scores ``[branch]``, best first.
 
     ``known_cap`` scores on known cells only (grid < ``known_cap``) with a
-    coverage floor ``min_known``: the masked and the coverage volume are one
-    batch of two grids. ``pool_coarse`` scores every level coarser than
-    step 1 on the grid min-pooled over that step (:func:`min_pool`). On
-    the card every level is one launch of kernel K2."""
+    coverage floor ``min_known``: the masked and the coverage volume come
+    from one pass over the grid (K2's fused pair on the card).
+    ``pool_coarse`` scores every level coarser than step 1 on the grid
+    min-pooled over that step (:func:`min_pool`). On the card every level
+    is one launch of kernel K2."""
     dev = grid.device
     step0 = 2 ** (levels - 1)
     c2 = center.reshape(1, 2)
@@ -249,23 +260,14 @@ def hierarchical_search(grid: torch.Tensor, center: torch.Tensor,
         ty = torch.as_tensor(ty_np, device=dev)
         tx = torch.as_tensor(tx_np, device=dev)
         g = min_pool(grid, cell_step) if (pool and cell_step > 1) else grid
-        if known_cap is None:
-            grids = g[None]
-            gidx = torch.zeros((s,), dtype=torch.int32, device=dev)
-            bases = b
-        else:
-            known = (g < known_cap).to(g.dtype)
-            grids = torch.stack([g * known, known])
-            gidx = torch.arange(2, dtype=torch.int32, device=dev).repeat(s)
-            bases = torch.repeat_interleave(b, 2, dim=0)
-        nb = bases.shape[0]
-        vol = score_volume_auto(grids, gidx, c2.expand(nb, 2), resolution,
-                                points, valid[None].expand(nb, -1), bases,
-                                rel, ty_np, tx_np, kind="strided")
+        gidx = torch.zeros((s,), dtype=torch.int32, device=dev)
+        vol = score_volume_auto(g[None], gidx, c2.expand(s, 2), resolution,
+                                points, valid[None].expand(s, -1), b, rel,
+                                ty_np, tx_np, kind="strided",
+                                known_cap=known_cap)
         if known_cap is None:
             raw = vol
         else:
-            vol = vol.reshape((s, 2) + vol.shape[1:])
             s_m, s_i = vol[:, 0], vol[:, 1]
             # s_m = Σ_known dist / count, s_i = known_count / count: the
             # mean over known cells is s_m / s_i, the coverage s_i

@@ -1,9 +1,10 @@
-"""Correlative scan-match score volumes: kernels K1 and K2 and their plain
-version.
+"""Correlative scan-match score volumes: kernels K1 and K2, K2's fused
+``known_cap`` pair, two timing probes, and their plain versions.
 
 Port of ``cg_mrslam_tpu/ops/correlate.py`` (``pallas_score_volume`` and
-``pallas_score_volume_strided``, the TPU Pallas kernel ``_make_kernel_v3``).
-The work splits in two:
+``pallas_score_volume_strided``, the TPU Pallas kernel ``_make_kernel_v3``;
+the probes stand for its ``_make_kernel_x1`` / ``_x2``). The work splits in
+two:
 
 * :func:`volume_cells` — shared torch code: rotate and shift the moving
   points for every (batch entry, θ), take their grid cells, the keep mask
@@ -13,12 +14,16 @@ The work splits in two:
   hand-written CUDA kernel of ``csrc/score_volume.cu`` (CUDA tensors only)
   — :data:`SCORE_VOLUME` (K1) for a contiguous ``±ry × ±rx`` window,
   :data:`SCORE_VOLUME_STRIDED` (K2) for a symmetric lattice of stride
-  ``sy, sx`` — or by :func:`volume_plain`, plain PyTorch for any lattice
-  (both kernels' plain version).
+  ``sy, sx``, which with ``known_cap`` scores the pair ``grid·known``,
+  ``known`` in one pass — or by :func:`volume_plain` /
+  :func:`volume_pair_plain`, plain PyTorch for any lattice.
 
 Both sides get identical integer cells, so they differ only in the order
 of the float32 sums. One call scores a batch of (grid index, base) pairs —
-every region of a keyframe in one launch.
+every region of a keyframe in one launch. :data:`PROBE_NO_GATHER` and
+:data:`PROBE_CONST_CELLS` time the kernel's body without its gathers;
+their results are wrong by design (:func:`probe_plain` says what they
+compute) and the main path never launches them.
 
 The CUDA source is compiled with ``nvcc`` for ``sm_90a`` on first use into
 ``build/kernels/`` at the repository root, as a shared library with a
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -104,6 +110,59 @@ def volume_plain(grids: torch.Tensor, gidx: torch.Tensor, ix: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
+def volume_pair_plain(grids: torch.Tensor, gidx: torch.Tensor,
+                      ix: torch.Tensor, iy: torch.Tensor, keep: torch.Tensor,
+                      count: torch.Tensor, ty_cells: torch.Tensor,
+                      tx_cells: torch.Tensor, known_cap: float
+                      ) -> torch.Tensor:
+    """K2's ``known_cap`` pair, plain: ``[B, 2, T, Dy, Dx]``, the volumes of
+    ``grid·known`` and of ``known`` (``known = grid < known_cap``) for
+    every (grid index, cells) pair — :func:`volume_plain` over the two grids
+    of :func:`stack_pair`, as the reference scores them."""
+    vol = volume_plain(*stack_pair(grids, gidx, ix, iy, keep, count,
+                                   known_cap), ty_cells, tx_cells)
+    return vol.reshape((ix.shape[0], 2) + vol.shape[1:])
+
+
+def stack_pair(grids: torch.Tensor, gidx: torch.Tensor, ix: torch.Tensor,
+               iy: torch.Tensor, keep: torch.Tensor, count: torch.Tensor,
+               known_cap: float) -> tuple:
+    """The ``known_cap`` pair as two grids: ``(grids2, gidx2, ix2, iy2,
+    keep2, count2)`` — grid ``2g`` is ``grids[g]·known``, grid ``2g+1`` is
+    ``known`` (``grids[g] < known_cap``), and every search is repeated,
+    search ``2b`` on the first, ``2b+1`` on the second."""
+    cells = grids.shape[-1]
+    known = (grids < known_cap).to(grids.dtype)
+    stacked = torch.stack([grids * known, known], 1).reshape(-1, cells,
+                                                             cells)
+    g2 = torch.stack([2 * gidx, 2 * gidx + 1], 1).reshape(-1)
+    return (stacked, g2) + tuple(torch.repeat_interleave(t, 2, dim=0)
+                                 for t in (ix, iy, keep, count))
+
+
+def probe_plain(mode: str, grids: torch.Tensor, gidx: torch.Tensor,
+                ix: torch.Tensor, iy: torch.Tensor, keep: torch.Tensor,
+                count: torch.Tensor, ty_cells: torch.Tensor,
+                tx_cells: torch.Tensor) -> torch.Tensor:
+    """What a timing probe (:class:`ScoreVolumeProbe`) computes, plain:
+    ``"no_gather"`` scores a grid whose cell ``y·C + x`` holds the float32
+    with the bits ``(y·C + x) | 0x3f800000`` (a value in [1, 2) for a grid
+    under 2896² cells); ``"const_cells"`` stages every point, kept or not,
+    at cell ``(C/2, C/2)``. Neither is a score volume."""
+    cells = grids.shape[-1]
+    if mode == "no_gather":
+        index = (torch.arange(cells * cells, dtype=torch.int32,
+                              device=grids.device) | 0x3F800000)
+        index = index.view(torch.float32).reshape(1, cells, cells)
+        return volume_plain(index, torch.zeros_like(gidx), ix, iy, keep,
+                            count, ty_cells, tx_cells)
+    if mode == "const_cells":
+        mid = torch.full_like(ix, cells // 2)
+        return volume_plain(grids, gidx, mid, mid, torch.ones_like(keep),
+                            count, ty_cells, tx_cells)
+    raise ValueError(f"unknown probe {mode!r}")
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -116,25 +175,29 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile ``csrc/score_volume.cu`` for ``sm_90a`` into
-    ``build/kernels/`` (skipped when a library built from the same source
-    is already there). Returns the library's path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src).hexdigest()[:12]
+def build(src: Path = _SRC) -> Path:
+    """Compile a score-volume source (by default ``csrc/score_volume.cu``)
+    for ``sm_90a`` into ``build/kernels/``, skipped when a library built
+    from the same bytes is already there. ``ptxas``'s report (registers,
+    shared memory, spills of each kernel) is kept beside the library as
+    ``<library>.ptxas.txt``. Returns the library's path."""
+    text = Path(src).read_bytes()
+    tag = hashlib.sha1(text).hexdigest()[:12]
     lib = BUILD_DIR / f"libscore_volume-{tag}.so"
-    if lib.exists():
+    if lib.exists() and Path(f"{lib}.ptxas.txt").exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
+           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o",
+           tmp, str(src)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                                f"{res.stdout}\n{res.stderr}")
+        Path(f"{lib}.ptxas.txt").write_text(res.stdout + res.stderr)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
@@ -142,25 +205,40 @@ def build() -> Path:
     return lib
 
 
-_LIB = None
+def ptxas_report(src: Path = _SRC) -> str:
+    """``ptxas -v``'s report of the library built from ``src``."""
+    return Path(f"{build(src)}.ptxas.txt").read_text()
 
 
-def load_library():
-    """Build (once) and load ``csrc/score_volume.cu``; both kernels' entry
-    points get their ``ctypes`` signatures."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.cg_score_volume.argtypes = ([ctypes.c_void_p] * 7
-                                        + [ctypes.c_int] * 7
-                                        + [ctypes.c_void_p])
-        lib.cg_score_volume.restype = ctypes.c_int
-        lib.cg_score_volume_strided.argtypes = ([ctypes.c_void_p] * 7
-                                                + [ctypes.c_int] * 9
-                                                + [ctypes.c_void_p])
-        lib.cg_score_volume_strided.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# entry point -> argument types: 7 pointers (grids, gidx, ix, iy, keep,
+# count, out), the sizes (n_grids, B, T, P, C), the lattice, the stream
+_SIGNATURES = {
+    "cg_score_volume": [_PTR] * 7 + [_INT] * 7 + [_PTR],
+    "cg_score_volume_strided": [_PTR] * 7 + [_INT] * 9 + [_PTR],
+    "cg_score_volume_pair": ([_PTR] * 7 + [_INT] * 9 + [ctypes.c_float]
+                             + [_PTR]),
+    "cg_score_volume_probe": [_INT] + [_PTR] * 7 + [_INT] * 9 + [_PTR],
+}
+_LIBS = {}
+
+
+def load_library(src: Path = _SRC):
+    """Build (once) and load a score-volume source; every entry point it
+    has gets its ``ctypes`` signature. Another source (an earlier version
+    of the kernel, for a comparison in one process) loads beside it.
+    Every launch asks for its library here: a loaded one is found by the
+    path as given, with no file-system call."""
+    key = str(src)
+    if key not in _LIBS:
+        lib = ctypes.CDLL(str(build(src)))
+        for name, argtypes in _SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _LIBS[key] = lib
+    return _LIBS[key]
 
 
 def _check_inputs(grids, gidx, ix, iy, keep, count):
@@ -190,32 +268,52 @@ def _check_inputs(grids, gidx, ix, iy, keep, count):
         raise ValueError(f"{n_pts} points > {MAX_POINTS}")
 
 
+def launch(fn, grids, gidx, ix, iy, keep, count, out_shape, *window):
+    """One launch of the ``ctypes`` entry point ``fn`` on the current
+    stream into a new float32 output ``out_shape``: no input check and no
+    count (the wrappers below add both)."""
+    bsz, n_theta, n_pts = ix.shape
+    dev = grids.device
+    out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(grids.data_ptr(), gidx.data_ptr(), ix.data_ptr(), iy.data_ptr(),
+            keep.data_ptr(), count.data_ptr(), out.data_ptr(),
+            grids.shape[0], bsz, n_theta, n_pts, grids.shape[-1], *window,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"score-volume kernel launch failed: "
+                           f"cudaError {rc}")
+    return out
+
+
+def _check_lattice(ny, nx, sy, sx):
+    if ny < 0 or nx < 0 or sy < 1 or sx < 1:
+        raise ValueError(f"bad lattice ny={ny} nx={nx} sy={sy} sx={sx}")
+
+
 class _Counted:
     """Launch counts of one kernel wrapper: :attr:`launches` (one per
     launch, nothing else adds to it) and, in :attr:`launches_by_shape`, per
-    output shape ``(B, T, Dy, Dx)`` — for K2 followed by its strides
-    ``(sy, sx)``."""
+    output shape — for K2 followed by its strides ``(sy, sx)``. The
+    ``ctypes`` entry points are looked up once, on the first launch."""
 
     def __init__(self) -> None:
         self.launches = 0
         self.launches_by_shape = collections.Counter()
+        self._entries = {}
 
-    def _launch(self, fn, key, grids, gidx, ix, iy, keep, count, dy, dx,
-                *window):
-        bsz, n_theta, n_pts = ix.shape
-        dev = grids.device
-        out = torch.empty((bsz, n_theta, dy, dx), dtype=torch.float32,
-                          device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(grids.data_ptr(), gidx.data_ptr(), ix.data_ptr(),
-                iy.data_ptr(), keep.data_ptr(), count.data_ptr(),
-                out.data_ptr(), grids.shape[0], bsz, n_theta, n_pts,
-                grids.shape[-1], *window, stream)
-        if rc != 0:
-            raise RuntimeError(f"score-volume kernel launch failed: "
-                               f"cudaError {rc}")
+    def _entry(self, name: str):
+        fn = self._entries.get(name)
+        if fn is None:
+            fn = self._entries[name] = getattr(load_library(), name)
+        return fn
+
+    def _launch(self, name, key, grids, gidx, ix, iy, keep, count,
+                out_shape, *window):
+        out = launch(self._entry(name), grids, gidx, ix, iy, keep, count,
+                     out_shape, *window)
         self.launches += 1
-        self.launches_by_shape[tuple(out.shape) + key] += 1
+        self.launches_by_shape[out_shape + key] += 1
         return out
 
 
@@ -229,26 +327,72 @@ class ScoreVolumeKernel(_Counted):
         _check_inputs(grids, gidx, ix, iy, keep, count)
         if ry < 0 or rx < 0:
             raise ValueError(f"bad window ry={ry} rx={rx}")
-        return self._launch(load_library().cg_score_volume, (), grids, gidx,
-                            ix, iy, keep, count, 2 * ry + 1, 2 * rx + 1, ry,
-                            rx)
+        return self._launch("cg_score_volume", (), grids, gidx, ix, iy,
+                            keep, count,
+                            tuple(ix.shape[:2]) + (2 * ry + 1, 2 * rx + 1),
+                            ry, rx)
 
 
 class ScoreVolumeStridedKernel(_Counted):
     """K2's wrapper: the strided lattice ``(i - ny)·sy``, ``(j - nx)·sx``
-    (``i < 2ny+1``, ``j < 2nx+1``), only its kept offsets computed."""
+    (``i < 2ny+1``, ``j < 2nx+1``), only its kept offsets computed.
+
+    With ``known_cap`` it launches the fused pair instead: one pass that
+    reads each cell ``v`` once and sums both ``v·k`` and ``k``, ``k = (v <
+    known_cap)``, into ``[B, 2, T, Dy, Dx]`` (:func:`volume_pair_plain`'s
+    result; the cap reaches the kernel as a C float, rounded to float32 as
+    torch's comparison of a float32 grid with a Python float rounds it).
+    It counts as a K2 launch."""
+
+    def __call__(self, grids: torch.Tensor, gidx: torch.Tensor,
+                 ix: torch.Tensor, iy: torch.Tensor, keep: torch.Tensor,
+                 count: torch.Tensor, ny: int, nx: int, sy: int, sx: int,
+                 known_cap: float | None = None) -> torch.Tensor:
+        _check_inputs(grids, gidx, ix, iy, keep, count)
+        _check_lattice(ny, nx, sy, sx)
+        b, t = ix.shape[:2]
+        dy, dx = 2 * ny + 1, 2 * nx + 1
+        if known_cap is None:
+            return self._launch("cg_score_volume_strided", (sy, sx), grids,
+                                gidx, ix, iy, keep, count, (b, t, dy, dx),
+                                ny, nx, sy, sx)
+        return self._launch("cg_score_volume_pair", (sy, sx), grids, gidx,
+                            ix, iy, keep, count, (b, 2, t, dy, dx), ny, nx,
+                            sy, sx, known_cap)
+
+
+class ScoreVolumeProbe(_Counted):
+    """A timing probe of K1/K2's kernel body: WRONG RESULTS BY DESIGN.
+    The body is the kernel's own (template parameter of the same source)
+    with the grid read changed: ``"no_gather"`` computes each cell's value
+    from its index and reads no memory (counterpart of the TPU probe
+    ``_make_kernel_x1``); ``"const_cells"`` stages every point at one cell,
+    so every load hits one L1 line (counterpart of ``_make_kernel_x2``).
+    Launched only by ``chip_smoke.py`` and ``tools/bench_score_volume.py``,
+    never by the main path; its counts are its own."""
+
+    MODES = {"no_gather": 1, "const_cells": 2}
+
+    def __init__(self, mode: str) -> None:
+        super().__init__()
+        self.mode = mode
+
+    def _entry(self, name: str):
+        return functools.partial(super()._entry(name), self.MODES[self.mode])
 
     def __call__(self, grids: torch.Tensor, gidx: torch.Tensor,
                  ix: torch.Tensor, iy: torch.Tensor, keep: torch.Tensor,
                  count: torch.Tensor, ny: int, nx: int, sy: int,
                  sx: int) -> torch.Tensor:
         _check_inputs(grids, gidx, ix, iy, keep, count)
-        if ny < 0 or nx < 0 or sy < 1 or sx < 1:
-            raise ValueError(f"bad lattice ny={ny} nx={nx} sy={sy} sx={sx}")
-        return self._launch(load_library().cg_score_volume_strided, (sy, sx),
-                            grids, gidx, ix, iy, keep, count, 2 * ny + 1,
-                            2 * nx + 1, ny, nx, sy, sx)
+        _check_lattice(ny, nx, sy, sx)
+        return self._launch("cg_score_volume_probe", (sy, sx), grids, gidx,
+                            ix, iy, keep, count,
+                            tuple(ix.shape[:2]) + (2 * ny + 1, 2 * nx + 1),
+                            ny, nx, sy, sx)
 
 
 SCORE_VOLUME = ScoreVolumeKernel()
 SCORE_VOLUME_STRIDED = ScoreVolumeStridedKernel()
+PROBE_NO_GATHER = ScoreVolumeProbe("no_gather")
+PROBE_CONST_CELLS = ScoreVolumeProbe("const_cells")

@@ -1,0 +1,124 @@
+"""Measurement helpers for the kernel records of ``chip_smoke.py`` and
+``tools/bench_score_volume.py``: one CUDA launch timed three ways, the
+card's line, and the score volume's bounds.
+
+* :func:`event_ms` — CUDA events around ``reps`` back-to-back calls after
+  warm-up: device time plus whatever the host's enqueue adds when it is
+  slower than the kernel.
+* :func:`graph_ms` — ``launches`` calls captured once into a CUDA graph,
+  the graph replayed ``replays`` times between CUDA events: device time
+  only (the CUDA driver enqueues the launches of a graph, not the host).
+* :func:`host_us` — the host clock per call over ``calls`` calls with no
+  synchronization inside: the enqueue cost a host-bound caller pays.
+* :func:`volume_bound` — the least time of one score-volume call on an
+  H100 SXM (bytes over the HBM rate, operations over the float32 rate);
+  :func:`issue_floor_ms` — the gather design's issue floor at a given SM
+  clock. Both are computed, not measured.
+
+``fn`` is a callable that launches on the current stream and allocates
+only through torch (allowed under graph capture).
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# the gather design's issue floor: one 4-byte load per (point, offset), at
+# most one warp-wide load (32 lanes) issued per clock on each of 132 SMs
+SMS, LOADS_PER_CLOCK = 132, 32
+
+
+def _smi(query: str) -> str:
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return _smi("name,power.limit")
+
+
+def max_sm_clock_ghz() -> float:
+    """The card's maximum SM clock as nvidia-smi reads it (not the clock
+    it ran at), in GHz."""
+    return float(_smi("clocks.max.sm").split()[0]) / 1e3
+
+
+def issue_floor_ms(loads: int, ghz: float) -> float:
+    """``loads`` warp-lane loads at 32 a clock on each of 132 SMs."""
+    return loads / (SMS * LOADS_PER_CLOCK * ghz * 1e9) * 1e3
+
+
+def volume_bound(grid_bytes: int, b: int, t: int, p: int, n_off: int,
+                 n_out: int, n_kept: int):
+    """``(bound_ms, bound_by)`` of one score-volume call: the function's
+    own inputs, each read once — the grids it scores (``grid_bytes``),
+    points [P,2] f32, valid [B,P] bool, bases [B,3] f32, thetas [T] f32 —
+    and its ``n_out`` output values written once, over the HBM rate,
+    against its adds (kept points x offsets per output volume) and
+    divides over the float32 rate. The cells, keep mask and count are
+    intermediates of the split between torch code and the kernel."""
+    n_bytes = grid_bytes + p * 2 * 4 + b * p + b * 3 * 4 + t * 4 + n_out * 4
+    n_ops = n_kept * n_off * (n_out // (b * t * n_off)) + n_out
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (launches * replays)
+    del graph
+    return ms
+
+
+def host_us(fn, calls: int = 200) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6

@@ -5,8 +5,9 @@
 Phases (nothing is caught; any failure ends the run with a traceback):
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the score-volume kernels K1 and K2 (``csrc/score_volume.cu``, one
-   nvcc) and load them;
+2. build the score-volume kernels K1 and K2, K2's fused ``known_cap`` pair
+   and the two timing probes (``csrc/score_volume.cu``, one nvcc); print
+   its ``ptxas -v`` report and the card's maximum SM clock;
 3. ``srslam``: the single-robot default deployment (40 x 20 m hospital
    world, seed 0, 2 loops, 360 beams, 10 m range, capacity 512/2048, close
    grid 30 m at 0.025 m, LC grid 70 m at 0.1 m) through ``SingleRobotSlam``
@@ -19,7 +20,14 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    the first call of each shape in phase 3 whose volume depends on where
    the points land (a grid that is not constant under kept points, and a
    score that varies along both offset axes): against its plain PyTorch
-   version (rtol 1e-5, atol 1e-6), both timed with CUDA events;
+   version (rtol 1e-5, atol 1e-6), timed as ``ms`` (CUDA events over
+   back-to-back wrapper calls), ``device_ms`` (the calls captured into a
+   CUDA graph and replayed: device time only) and ``host_us`` (the host's
+   enqueue per call), beside the bytes bound; then the two timing probes
+   (``no_gather``, ``const_cells``: wrong by design, each held to its own
+   plain version) on the same inputs, timed the same way. The log line of
+   each also gives the issue floor at the card's maximum SM clock (computed,
+   so not in the JSON record);
 5. the first 20 ``srslam`` keyframes replayed on the CPU (plain versions),
    poses against the card's;
 6. ``cg_mrslam``: the in-process multi-robot default deployment (2 robots,
@@ -28,15 +36,16 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    robots stop keyframing at capacity - 4, with K1's and K2's counts set to
    0 just before and read just after; checks foreign vertices on every
    robot, at least one accepted inter-robot closure and one spliced star,
-   finite chi2, K2 launches = 4 per robot per exchange round, K1 launches =
-   3 per keyframe, keyframes on the dense Cholesky band and condense on the
+   finite chi2, K2 launches = 4 per robot per exchange round (every one the
+   fused pair), no probe launched, K1 launches = 3 per keyframe, keyframes on the dense Cholesky band and condense on the
    chain or PCG band, per-robot ATE below the odometry-only ATE and a
    median cross-robot pose agreement under 0.6 m (``tests/test_mrslam.py``'s
    bar); prints those, condenses by band, keyframe and exchange-round time
    p50/p99 (host clock, the card synchronized around each) and the split of
    a round (CUDA events, no synchronization added);
-7. K2 at the level-0 and refine lattices of phase 6, on live captured
-   inputs, against the plain version (rtol 1e-5, atol 1e-6), timed;
+7. K2's pair at the level-0 and refine lattices of phase 6, on live
+   captured inputs, against its plain version (rtol 1e-5, atol 1e-6), timed
+   and probed as in phase 4;
 8. phase 6 replayed on the CPU (plain versions) up to the first exchange
    round in which a robot accepts an inter-robot closure (so combos were
    received, parked vertices matched by the global search into buffered
@@ -45,8 +54,8 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    star edges — equal to the card's, own keyframe poses within 1e-3 m /
    rad.
 
-The card's line comes again just before the ``kernels`` JSON record, which is
-the line before last; the last line is
+The card's line comes again just before the ``kernels`` JSON record (every
+kernel and probe record), which is the line before last; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when no CUDA device is available.
 """
@@ -56,7 +65,6 @@ from __future__ import annotations
 import collections
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -64,8 +72,6 @@ import numpy as np
 import torch
 
 RTOL, ATOL = 1e-5, 1e-6
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 N_CPU_KEYFRAMES = 20
 # the CPU replay of phase 8 stops at the first inter-robot closure; it
 # fails if that comes later than this many exchange rounds
@@ -83,18 +89,26 @@ REPLACES = "cg_mrslam_tpu/ops/correlate.py:189 (_make_kernel_v3 via " \
            "pallas_score_volume, :477; pallas_call at :454)"
 REPLACES_K2 = "cg_mrslam_tpu/ops/correlate.py:505 (pallas_score_volume_" \
               "strided; body _make_kernel_v3 :189, pallas_call at :454)"
+# the timing probes: the TPU probe each stands for
+REPLACES_PROBE = {
+    "no_gather": "cg_mrslam_tpu/ops/correlate.py:226 (_make_kernel_x1, "
+                 "timing probe; pallas_call at :454)",
+    "const_cells": "cg_mrslam_tpu/ops/correlate.py:257 (_make_kernel_x2, "
+                   "timing probe; pallas_call at :454)"}
+SOURCE = "cg_mrslam_tpu_torch/csrc/score_volume.cu"
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+def plain_of(args, ty, tx):
+    """The plain version of a K1 or K2 call on its wrapper's arguments."""
+    from cg_mrslam_tpu_torch.ops import correlate as K
+
+    if len(args) == 11 and args[10] is not None:
+        return K.volume_pair_plain(*args[:6], ty, tx, args[10])
+    return K.volume_plain(*args[:6], ty, tx)
 
 
 def k1_name(args) -> str:
@@ -116,11 +130,12 @@ def live_volumes(grids, gidx, keep) -> torch.Tensor:
 
 
 def spreads(vol, live):
-    """Largest spread of the live volumes of ``vol [B,T,Dy,Dx]`` along Dy
-    and along Dx (0 when no volume is live)."""
+    """Largest spread of the live volumes of ``vol [B,T,Dy,Dx]`` (or a
+    pair's ``[B,2,T,Dy,Dx]``) along Dy and along Dx (0 when no volume is
+    live)."""
     if not bool(live.any()):
         return 0.0, 0.0
-    v = vol[live]
+    v = vol[live].flatten(1, -3)
     return (float((v.amax(2) - v.amin(2)).max()),
             float((v.amax(3) - v.amin(3)).max()))
 
@@ -239,28 +254,22 @@ def run_slice(cfg, traj, fov, device, max_keyframes=None, capture=None):
     return slam, np.asarray(kf_t), lat
 
 
-def cuda_ms(fn, reps=20) -> float:
-    for _ in range(3):
-        fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+def lattice_args(args):
+    """``(ny, nx, sy, sx)`` of a K1 or K2 call."""
+    return (args[6], args[7], 1, 1) if len(args) == 8 else args[6:10]
 
 
 def check_kernel(kernel, args, ty, tx):
-    """Kernel vs plain on one captured call over the lattice ``ty x tx``;
-    returns the record."""
-    from cg_mrslam_tpu_torch.ops.correlate import volume_plain
+    """Kernel vs plain on one captured call over the lattice ``ty x tx``,
+    then its times: ``ms`` (CUDA events over back-to-back wrapper calls),
+    ``device_ms`` (CUDA graph replay: device time only, two runs) and
+    ``host_us`` (the host's enqueue per wrapper call). Returns the
+    record."""
+    from cg_mrslam_tpu_torch.utils import cuda_timing as CT
 
     grids, gidx, ix, iy, keep, count = args[:6]
     got = kernel(*args)
-    want = volume_plain(grids, gidx, ix, iy, keep, count, ty, tx)
+    want = plain_of(args, ty, tx)
     torch.cuda.synchronize()
     # the inputs must make the comparison able to fail: some volume with
     # kept points on a grid that is not constant, whose plain scores vary
@@ -270,29 +279,77 @@ def check_kernel(kernel, args, ty, tx):
     assert min(spread_y, spread_x) >= MIN_SPREAD, (spread_y, spread_x)
     err = float((got - want).abs().max())
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    ms = cuda_ms(lambda: kernel(*args))
-    plain_ms = cuda_ms(lambda: volume_plain(grids, gidx, ix, iy, keep,
-                                            count, ty, tx), reps=5)
+    ms = CT.event_ms(lambda: kernel(*args))
+    plain_ms = CT.event_ms(lambda: plain_of(args, ty, tx), reps=5)
+    dev_ms = [CT.graph_ms(lambda: kernel(*args)) for _ in range(2)]
     b, t, p = ix.shape
     n_off = ty.numel() * tx.numel()
-    # the function's own inputs, each read once — the grids it scores,
-    # points [P,2] f32, valid [B,P] bool, bases [B,3] f32, thetas [T] f32 —
-    # and its output written once; the cells, keep mask and count are
-    # intermediates of the split between torch code and the kernel
     n_grids = int(torch.unique(gidx).numel())
-    n_bytes = (n_grids * grids[0].numel() * 4 + p * 2 * 4 + b * p
-               + b * 3 * 4 + t * 4 + b * t * n_off * 4)
-    n_ops = int(keep.sum()) * n_off + b * t * n_off   # adds + divides
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return {"shape": [b, t, ty.numel(), tx.numel()], "points": p,
+    bound_ms, bound_by = CT.volume_bound(n_grids * grids[0].numel() * 4, b,
+                                         t, p, n_off, want.numel(),
+                                         int(keep.sum()))
+    return {"shape": list(want.shape), "points": p,
             "grid_cells": grids.shape[-1], "grids": n_grids,
             "live_volumes": int(live.sum()),
             "spread_dy": spread_y, "spread_dx": spread_x,
             "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "device_ms": float(np.mean(dev_ms)), "device_ms_runs": dev_ms,
+            "host_us": CT.host_us(lambda: kernel(*args)),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def check_probes(args, ty, tx, where: str) -> list:
+    """Both timing probes on one captured call: each against its own
+    plain version (:func:`correlate.probe_plain`; a probe is not a score
+    volume), timed like the kernel. Records named ``probe_<mode>[where]``;
+    ``launches`` is filled in from the main path's counts."""
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.utils import cuda_timing as CT
+
+    grids, gidx, ix, iy, keep, count = args[:6]
+    window = lattice_args(args)
+    b, t, p = ix.shape
+    n_off = ty.numel() * tx.numel()
+    out = []
+    for probe in (K.PROBE_NO_GATHER, K.PROBE_CONST_CELLS):
+        call = (lambda probe=probe: probe(*args[:6], *window))
+        got = call()
+        want = K.probe_plain(probe.mode, *args[:6], ty, tx)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        # what the probe must move: no grid for no_gather, the Dy x Dx
+        # cells around the one staged cell for const_cells
+        grid_bytes = 0 if probe.mode == "no_gather" else n_off * 4
+        bound_ms, bound_by = CT.volume_bound(grid_bytes, b, t, p, n_off,
+                                             want.numel(), b * t * p)
+        out.append({
+            "name": f"probe_{probe.mode}[{where}]", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES_PROBE[probe.mode],
+            "probe": True, "launches": None, "shape": list(want.shape),
+            "points": p,
+            "max_abs_err": float((got - want).abs().max()),
+            "ms": CT.event_ms(call), "device_ms": CT.graph_ms(call),
+            "host_us": CT.host_us(call),
+            "plain_ms": CT.event_ms(lambda probe=probe: K.probe_plain(
+                probe.mode, *args[:6], ty, tx), reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return out
+
+
+def kernel_line(rec, ghz: float) -> str:
+    """A record for the log, with the issue floor at ``ghz`` (T·Dy·Dx·P
+    loads per volume, computed from the record's shape)."""
+    from cg_mrslam_tpu_torch.utils import cuda_timing as CT
+
+    loads = math.prod(rec["shape"]) // (2 if rec.get("pair") else 1)
+    floor = CT.issue_floor_ms(loads * rec["points"], ghz)
+    return (f"kernel {rec['name']} {rec['shape']}: ms {rec['ms']:.4f}, "
+            f"device_ms {rec['device_ms']:.5f}, host_us "
+            f"{rec['host_us']:.1f}, issue floor {floor:.5f} ms at "
+            f"{ghz:.3f} GHz (computed), bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']}, plain {rec['plain_ms']:.3f} ms, "
+            f"max_abs_err {rec['max_abs_err']:.3g}")
 
 
 def lattice(n: int, s: int, dev) -> torch.Tensor:
@@ -490,9 +547,10 @@ def main() -> int:
     import cg_mrslam_tpu_torch.matcher.search as search
     from cg_mrslam_tpu_torch.ops import correlate as K
     from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+    from cg_mrslam_tpu_torch.utils import cuda_timing as CT
 
     # --- 1. the card ---
-    card = card_line()
+    card = CT.card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
@@ -500,10 +558,13 @@ def main() -> int:
 
     # --- 2. build ---
     t0 = time.perf_counter()
-    K.build()
     K.load_library()
-    log(f"build: score_volume.cu (K1, K2) in "
+    log(f"build: score_volume.cu (K1, K2, the pair, the probes) in "
         f"{time.perf_counter() - t0:.2f} s")
+    log(f"ptxas -v:\n{K.ptxas_report()}")
+    ghz = CT.max_sm_clock_ghz()
+    log(f"max SM clock {ghz:.3f} GHz (the issue floor's clock)")
+    probes = (K.PROBE_NO_GATHER, K.PROBE_CONST_CELLS)
 
     # --- 3. the slice on the card ---
     t0 = time.perf_counter()
@@ -512,14 +573,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     capture = Capture(K.SCORE_VOLUME, k1_name, SHAPES)
     search.SCORE_VOLUME = capture
-    K.SCORE_VOLUME.launches = 0
-    K.SCORE_VOLUME.launches_by_shape.clear()
+    for k in (K.SCORE_VOLUME,) + probes:
+        k.launches = 0
+        k.launches_by_shape.clear()
     t0 = time.perf_counter()
     slam, kf_t, lat = run_slice(cfg, traj, fov, "cuda", capture=capture)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.SCORE_VOLUME.launches
     by_shape = dict(K.SCORE_VOLUME.launches_by_shape)
+    assert all(k.launches == 0 for k in probes), "a probe ran on the path"
     search.SCORE_VOLUME = K.SCORE_VOLUME
     n_kf = len(slam.infos)
     infos = slam.infos
@@ -551,26 +614,26 @@ def main() -> int:
 
     # --- 4. the kernel at the main-path shapes ---
     assert sorted(capture.calls) == sorted(SHAPES), sorted(capture.calls)
-    records = []
+    records, probe_records = [], []
     for name in SHAPES:
         args = capture.calls[name]
         dev = args[0].device
-        rec = check_kernel(K.SCORE_VOLUME, args, lattice(args[6], 1, dev),
-                           lattice(args[7], 1, dev))
+        ty, tx = lattice(args[6], 1, dev), lattice(args[7], 1, dev)
+        rec = check_kernel(K.SCORE_VOLUME, args, ty, tx)
         key = tuple(rec["shape"])
         rec = {"name": f"score_volume[{name}]", "route": "cuda",
-               "source": "cg_mrslam_tpu_torch/csrc/score_volume.cu",
-               "replaces": REPLACES, "launches": by_shape[key],
+               "source": SOURCE, "replaces": REPLACES,
+               "launches": by_shape[key],
                "launches_per_keyframe": by_shape[key] / n_kf,
                "captured_at_keyframe": capture.keyframe[name], **rec}
         assert by_shape[key] == n_kf, (name, by_shape[key], n_kf)
         records.append(rec)
-        log(f"kernel {rec['name']} {rec['shape']} (keyframe "
-            f"{rec['captured_at_keyframe']}, {rec['live_volumes']} live "
-            f"volumes, spread {rec['spread_dy']:.4g}/{rec['spread_dx']:.4g}):"
-            f" {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound "
-            f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}), max_abs_err "
-            f"{rec['max_abs_err']:.3g}")
+        log(kernel_line(rec, ghz) + f" (keyframe {rec['captured_at_keyframe']}, "
+            f"{rec['live_volumes']} live volumes, spread "
+            f"{rec['spread_dy']:.4g}/{rec['spread_dx']:.4g})")
+        for pr in check_probes(args, ty, tx, name):
+            probe_records.append(pr)
+            log(kernel_line(pr, ghz))
 
     # --- 5. the first keyframes on the CPU ---
     t0 = time.perf_counter()
@@ -589,7 +652,7 @@ def main() -> int:
     # --- 6. the multi-robot deployment on the card ---
     capture2 = Capture(K.SCORE_VOLUME_STRIDED, k2_name, STRIDED)
     search.SCORE_VOLUME_STRIDED = capture2
-    for k in (K.SCORE_VOLUME, K.SCORE_VOLUME_STRIDED):
+    for k in (K.SCORE_VOLUME, K.SCORE_VOLUME_STRIDED) + probes:
         k.launches = 0
         k.launches_by_shape.clear()
     gn.BAND_CALLS.clear()
@@ -601,6 +664,7 @@ def main() -> int:
     k1_mr = K.SCORE_VOLUME.launches
     k2_launches = K.SCORE_VOLUME_STRIDED.launches
     k2_by = dict(K.SCORE_VOLUME_STRIDED.launches_by_shape)
+    probe_launches = sum(k.launches for k in probes)
     bands = dict(gn.BAND_CALLS)
     search.SCORE_VOLUME_STRIDED = K.SCORE_VOLUME_STRIDED
     n_rounds = len(mlog["rounds"])
@@ -647,6 +711,9 @@ def main() -> int:
     assert sum(o["inter_closures"] for o in outs) >= 1, outs
     assert sum(o["star_edges"] for o in outs) >= 1, outs
     assert k2_launches == 4 * sim.R * n_rounds, (k2_launches, n_rounds)
+    # every level of the known-cap search is one fused-pair launch
+    assert all(k[1] == 2 and len(k) == 7 for k in k2_by), k2_by
+    assert probe_launches == 0, "a probe ran on the path"
     assert k1_mr == 3 * sum(n_kf), (k1_mr, n_kf)
     assert sum(condenses.values()) == len(times["build_star"]) > 0
     assert bands.get(("optimize_auto", "dense"), 0) == 2 * sum(n_kf)
@@ -656,24 +723,26 @@ def main() -> int:
     for name, stride in STRIDED.items():
         args = capture2.calls[name]
         dev = args[0].device
-        rec = check_kernel(K.SCORE_VOLUME_STRIDED, args,
-                           lattice(args[6], stride, dev),
-                           lattice(args[7], stride, dev))
+        ty = lattice(args[6], stride, dev)
+        tx = lattice(args[7], stride, dev)
+        rec = check_kernel(K.SCORE_VOLUME_STRIDED, args, ty, tx)
         key = tuple(rec["shape"]) + (stride, stride)
         rec = {"name": f"score_volume_strided[{name}]", "route": "cuda",
-               "source": "cg_mrslam_tpu_torch/csrc/score_volume.cu",
-               "replaces": REPLACES_K2, "launches": k2_by[key],
+               "source": SOURCE, "replaces": REPLACES_K2, "pair": True,
+               "launches": k2_by[key],
                "launches_per_round": k2_by[key] / n_rounds,
                "captured_at_round": capture2.keyframe[name],
                "stride": stride, **rec}
         assert k2_by[key] == sim.R * n_rounds, (name, k2_by[key])
         records.append(rec)
-        log(f"kernel {rec['name']} {rec['shape']} (round "
-            f"{rec['captured_at_round']}, {rec['live_volumes']} live "
-            f"volumes, spread {rec['spread_dy']:.4g}/{rec['spread_dx']:.4g}):"
-            f" {rec['ms']:.4f} ms (plain {rec['plain_ms']:.3f} ms, bound "
-            f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}), max_abs_err "
-            f"{rec['max_abs_err']:.3g}")
+        log(kernel_line(rec, ghz) + f" (round {rec['captured_at_round']}, "
+            f"{rec['live_volumes']} live volumes, spread "
+            f"{rec['spread_dy']:.4g}/{rec['spread_dx']:.4g})")
+        for pr in check_probes(args, ty, tx, name):
+            probe_records.append(pr)
+            log(kernel_line(pr, ghz))
+    for pr in probe_records:   # the main paths' counts: 0 by the asserts
+        pr["launches"] = 0
 
     # --- 8. the exchange rounds up to the first inter-robot closure, on
     # the CPU ---
@@ -702,7 +771,7 @@ def main() -> int:
         f"{rounds[-1]} in {time.perf_counter() - t0:.2f} s")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"kernels": records + probe_records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,8 @@ its tolerance (rtol 1e-5, atol 1e-6). The CUDA kernel itself is held to
 the plain version on the card by ``tests/test_torch_cuda.py``.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,3 +155,42 @@ def test_cpu_tensors_take_the_plain_version():
         K.SCORE_VOLUME(tf(grids), tf(gidx), *K.volume_cells(
             tf(centers), 0.05, grids.shape[-1], tf(mov),
             torch.as_tensor(valid), tf(bases), tf(thetas)), 2, 2)
+
+
+def test_build_rebuilds_a_library_without_its_report(tmp_path, monkeypatch):
+    """A library found with no ``ptxas`` report beside it (built by an
+    earlier ``build``) is a cache miss: it is built again, report and
+    all. ``nvcc`` is stood in for by a script that writes its output."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                    'echo lib > "$2"\necho "ptxas info: Used 32 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(K, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "kernels")
+    src = tmp_path / "score_volume.cu"
+    src.write_text("// a source\n")
+    lib = K.build(src)
+    report = Path(f"{lib}.ptxas.txt")
+    assert lib.exists() and "32 registers" in report.read_text()
+    report.unlink()
+    assert K.build(src) == lib
+    assert "32 registers" in K.ptxas_report(src)
+
+
+def test_stack_pair_layout():
+    """``stack_pair``: grid 2g is ``g·known``, 2g+1 is ``known``; search b
+    becomes searches 2b (first grid) and 2b+1 (second)."""
+    rng = np.random.default_rng(5)
+    grids = torch.as_tensor(rng.uniform(0, 1, (2, 6, 6)), dtype=torch.float32)
+    gidx = torch.tensor([1, 0, 1], dtype=torch.int32)
+    ix = torch.as_tensor(rng.integers(0, 6, (3, 2, 4)), dtype=torch.int32)
+    keep = torch.as_tensor(rng.uniform(size=(3, 2, 4)) > 0.3)
+    count = torch.as_tensor(rng.uniform(1, 4, (3, 2)), dtype=torch.float32)
+    g2, gidx2, ix2, iy2, keep2, count2 = K.stack_pair(grids, gidx, ix, ix,
+                                                      keep, count, 0.4)
+    known = (grids < 0.4).to(torch.float32)
+    torch.testing.assert_close(g2[0::2], grids * known, rtol=0, atol=0)
+    torch.testing.assert_close(g2[1::2], known, rtol=0, atol=0)
+    assert gidx2.tolist() == [2, 3, 0, 1, 2, 3]
+    for a, b in ((ix2, ix), (iy2, ix), (keep2, keep), (count2, count)):
+        assert torch.equal(a[0::2], b) and torch.equal(a[1::2], b)

@@ -1,8 +1,11 @@
-"""Card-only tests of the PyTorch/CUDA port: the score-volume kernels K1 and
-K2 against their plain version, their launch counts and input checks, the
-solver's masked loops and condense on the card against the CPU, and a
-keyframe step with no host synchronization. Every test carries the ``cuda`` marker and
-skips where there is no NVIDIA GPU.
+"""Card-only tests of the PyTorch/CUDA port: the score-volume kernels K1
+and K2 (and K2's fused ``known_cap`` pair) against their plain version — at
+the main path's shapes and at edge cases, bit-identical on repeat, exact
+ties kept —, the timing probes against theirs and kept off the main path,
+their launch counts and input checks, the solver's masked loops and
+condense on the card against the CPU, and a keyframe step with no host
+synchronization. Every test carries the ``cuda`` marker and skips where
+there is no NVIDIA GPU.
 
 This file imports neither JAX nor ``cg_mrslam_tpu``, so it also runs on a
 machine without them (``tests/conftest.py`` imports JAX, hence
@@ -36,7 +39,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, t, cells, res, bsz, seed=0):
+def _inputs(dev, t, cells, res, bsz, seed=0, n_pts=360, spread=0.6):
     from cg_mrslam_tpu_torch.matcher.grid import build_grids
 
     rng = np.random.default_rng(seed)
@@ -49,9 +52,11 @@ def _inputs(dev, t, cells, res, bsz, seed=0):
                                    device=dev),
                         torch.zeros(n_grids, 2, device=dev), cells=cells,
                         resolution=res, kernel_radius=0.3)
-    pts = torch.as_tensor(rng.uniform(-half * 0.6, half * 0.6, (360, 2)),
+    pts = torch.as_tensor(rng.uniform(-half * spread, half * spread,
+                                      (n_pts, 2)),
                           dtype=torch.float32, device=dev)
-    valid = torch.as_tensor(rng.uniform(size=(bsz, 360)) > 0.1, device=dev)
+    valid = torch.as_tensor(rng.uniform(size=(bsz, n_pts)) > 0.1,
+                            device=dev)
     bases = torch.as_tensor(rng.uniform(-1, 1, (bsz, 3)),
                             dtype=torch.float32, device=dev)
     gidx = (torch.arange(bsz, device=dev) % n_grids).to(torch.int32)
@@ -110,6 +115,12 @@ def test_strided_kernel_matches_plain(dev, t, ny, nx, stride, bsz):
     assert float((want.amax(2) - want.amin(2)).max()) > 100 * ATOL
     assert float((want.amax(3) - want.amin(3)).max()) > 100 * ATOL
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    # the fused known-cap pair at the same lattice (the path's form)
+    pair = K.SCORE_VOLUME_STRIDED(grids, gidx, ix, iy, keep, count, ny, nx,
+                                  stride, stride, 0.25)
+    torch.testing.assert_close(
+        pair, K.volume_pair_plain(grids, gidx, ix, iy, keep, count, ty, tx,
+                                  0.25), rtol=RTOL, atol=ATOL)
 
 
 def test_strided_kernel_rejects_bad_inputs(dev):
@@ -124,10 +135,20 @@ def test_strided_kernel_rejects_bad_inputs(dev):
                                4, 4)
 
 
-def test_hierarchical_search_launches_k2_per_level(dev):
-    """Every level of a known-cap search is one K2 launch (B = 2 at level
-    0, 2 x branch after), and the card's result is the CPU's."""
+def test_hierarchical_search_launches_k2_per_level(dev, monkeypatch):
+    """Every level of a known-cap search is one launch of K2's fused pair
+    (B = 1 at level 0, branch after) on the one grid — no stacked grid —,
+    no probe runs, and the card's result is the CPU's."""
     from cg_mrslam_tpu_torch.matcher import search as TS
+
+    seen = []
+
+    def spy(*args):
+        seen.append((args[0].shape[0], args[10]))
+        return K.SCORE_VOLUME_STRIDED(*args)
+
+    monkeypatch.setattr(TS, "SCORE_VOLUME_STRIDED", spy)
+    probes = [K.PROBE_NO_GATHER.launches, K.PROBE_CONST_CELLS.launches]
 
     grids, _, _ = _inputs(dev, 1, 300, 0.1, 1, seed=7)
     rng = np.random.default_rng(7)
@@ -146,10 +167,14 @@ def test_hierarchical_search_launches_k2_per_level(dev):
     new = {k: v - by_shape.get(k, 0)
            for k, v in K.SCORE_VOLUME_STRIDED.launches_by_shape.items()
            if v != by_shape.get(k, 0)}
-    # keys (B, T, Dy, Dx, sy, sx): level 0 at stride 8, refines at 4, 2, 1
-    assert sorted((k[0],) + k[-2:] for k in new) == [
-        (2, 8, 8), (32, 1, 1), (32, 2, 2), (32, 4, 4)], new
-    assert all(k[1:4] == (5, 5, 5) for k in new if k[0] == 32), new
+    # keys (B, 2, T, Dy, Dx, sy, sx): level 0 at stride 8, refines at 4,
+    # 2, 1
+    assert sorted(k[:2] + k[-2:] for k in new) == [
+        (1, 2, 8, 8), (16, 2, 1, 1), (16, 2, 2, 2), (16, 2, 4, 4)], new
+    assert all(k[2:5] == (5, 5, 5) for k in new if k[0] == 16), new
+    assert seen == [(1, kw["known_cap"])] * 4, seen
+    assert [K.PROBE_NO_GATHER.launches,
+            K.PROBE_CONST_CELLS.launches] == probes
     want = TS.hierarchical_search(grids[0].cpu(), torch.zeros(2), 0.1, pts,
                                   valid, base, **kw)
     # survivors as a sorted score list: a float32 near-tie may order two
@@ -159,6 +184,137 @@ def test_hierarchical_search_launches_k2_per_level(dev):
                                atol=ATOL)
     torch.testing.assert_close(got.poses[0].cpu(), want.poses[0], rtol=0,
                                atol=1e-5)
+
+
+def _lattice(n, s, dev):
+    return torch.arange(-n, n + 1, dtype=torch.int32, device=dev) * s
+
+
+# edge cases (T, ny, nx, stride, cells, batch, points, spread of the points
+# over the grid: > 1 puts many off it): one point, a ragged warp slice, the
+# main path's count and one more, the most the kernel takes; few and many
+# (b, t) blocks against the 132 SMs; points off the grid
+EDGES = [(5, 2, 2, 1, 200, 2, 1, 0.6), (5, 2, 2, 1, 200, 2, 31, 0.6),
+         (7, 3, 6, 2, 300, 3, 360, 0.6), (7, 3, 6, 2, 300, 3, 361, 0.6),
+         (3, 2, 3, 1, 300, 2, K.MAX_POINTS, 0.6),
+         (2, 12, 12, 1, 400, 1, 200, 0.6), (40, 2, 2, 4, 400, 40, 200, 0.6),
+         (9, 4, 4, 1, 200, 4, 360, 2.5)]
+
+
+@pytest.mark.parametrize("t,ny,nx,stride,cells,bsz,n_pts,spread", EDGES)
+def test_kernel_edge_cases(dev, t, ny, nx, stride, cells, bsz, n_pts,
+                           spread):
+    grids, gidx, cells_ = _inputs(dev, t, cells, 0.1, bsz, seed=n_pts,
+                                  n_pts=n_pts, spread=spread)
+    ty, tx = _lattice(ny, stride, dev), _lattice(nx, stride, dev)
+    want = K.volume_plain(grids, gidx, *cells_, ty, tx)
+    got = K.SCORE_VOLUME_STRIDED(grids, gidx, *cells_, ny, nx, stride,
+                                 stride)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    if spread > 1:  # some points fall off the grid, some stay on
+        ix, iy = cells_[0], cells_[1]
+        off = (ix < 0) | (iy < 0) | (ix >= cells) | (iy >= cells)
+        assert bool(off.any()) and not bool(off.all())
+    pair = K.SCORE_VOLUME_STRIDED(grids, gidx, *cells_, ny, nx, stride,
+                                  stride, 0.2)
+    torch.testing.assert_close(
+        pair, K.volume_pair_plain(grids, gidx, *cells_, ty, tx, 0.2),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_kernel_points_limit(dev):
+    grids, gidx, (ix, iy, keep, count) = _inputs(
+        dev, 2, 100, 0.1, 1, n_pts=K.MAX_POINTS + 1)
+    with pytest.raises(ValueError, match="points"):
+        K.SCORE_VOLUME(grids, gidx, ix, iy, keep, count, 1, 1)
+
+
+def test_kernel_dropped_points_and_bad_grid(dev):
+    """Every point dropped: volumes of exactly 0 (count clamps to 1); a
+    grid index out of range poisons its volumes with NaN, the others are
+    untouched."""
+    grids, gidx, (ix, iy, keep, count) = _inputs(dev, 5, 200, 0.1, 3)
+    none = torch.zeros_like(keep)
+    got = K.SCORE_VOLUME(grids, gidx, ix, iy, none,
+                         torch.ones_like(count), 2, 2)
+    assert bool((got == 0).all())
+    bad = gidx.clone()
+    bad[1] = grids.shape[0]
+    for cap in (None, 0.2):
+        args = (grids, bad, ix, iy, keep, count, 2, 2, 1, 1)
+        out = K.SCORE_VOLUME_STRIDED(*args, cap)
+        assert bool(out[1].isnan().all())
+        assert not bool(out[0].isnan().any() | out[2].isnan().any())
+
+
+def test_kernel_repeats_bit_for_bit(dev):
+    """No atomics: two launches on the same inputs give the same bits, at
+    a shape with many warps per volume (close) and with the pair."""
+    grids, gidx, cells_ = _inputs(dev, 65, 1200, 0.025, 1)
+    a = K.SCORE_VOLUME(grids, gidx, *cells_, 12, 12)
+    b = K.SCORE_VOLUME(grids, gidx, *cells_, 12, 12)
+    assert torch.equal(a, b)
+    grids, gidx, cells_ = _inputs(dev, 5, 700, 0.1, 48)
+    a = K.SCORE_VOLUME_STRIDED(grids, gidx, *cells_, 2, 2, 4, 4, 0.2)
+    b = K.SCORE_VOLUME_STRIDED(grids, gidx, *cells_, 2, 2, 4, 4, 0.2)
+    assert torch.equal(a, b)
+
+
+def test_kernel_keeps_exact_ties(dev):
+    """On a grid constant along x, with every shifted cell on the grid,
+    all offsets j of a row see the same values in the same order: they
+    must be exactly equal (corridor ties that ``volume_topk`` orders)."""
+    cells = 300
+    rows = torch.linspace(0.0, 0.5, cells, device=dev)
+    grids = rows[None, :, None].expand(1, cells, cells).contiguous()
+    gidx = torch.zeros(2, dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(rng.uniform(-8, 8, (360, 2)),
+                          dtype=torch.float32, device=dev)
+    valid = torch.ones(2, 360, dtype=torch.bool, device=dev)
+    bases = torch.tensor([[0.1, 0.2, 0.3], [-0.3, 0.1, -1.0]], device=dev)
+    cells_ = K.volume_cells(torch.zeros(2, 2, device=dev), 0.1, cells, pts,
+                            valid, bases, torch.linspace(-0.3, 0.3, 9,
+                                                         device=dev))
+    for vol in (K.SCORE_VOLUME(grids, gidx, *cells_, 12, 12),
+                K.SCORE_VOLUME_STRIDED(grids, gidx, *cells_, 3, 6, 2, 2),
+                K.SCORE_VOLUME_STRIDED(grids, gidx, *cells_, 3, 6, 2, 2,
+                                       0.3)):
+        assert bool((vol == vol[..., :1]).all())
+        assert float((vol.amax(-2) - vol.amin(-2)).max()) > 1e-3
+
+
+@pytest.mark.parametrize("stride,bsz", [(8, 1), (4, 48), (1, 48)])
+def test_pair_matches_two_grid_launch(dev, stride, bsz):
+    """The fused pair equals K2 over the stacked ``[g·known, known]`` with
+    every search repeated (the path it replaces), to float32 rounding."""
+    grids, gidx, (ix, iy, keep, count) = _inputs(dev, 5, 700, 0.1, bsz,
+                                                 seed=stride)
+    grids, gidx = grids[:1], torch.zeros_like(gidx)
+    cap = 0.3 * 0.999
+    pair = K.SCORE_VOLUME_STRIDED(grids, gidx, ix, iy, keep, count, 2, 3,
+                                  stride, stride, cap)
+    two = K.SCORE_VOLUME_STRIDED(*K.stack_pair(grids, gidx, ix, iy, keep,
+                                               count, cap), 2, 3, stride,
+                                 stride)
+    assert pair.shape == (bsz, 2, 5, 5, 7)
+    torch.testing.assert_close(pair, two.reshape(pair.shape), rtol=RTOL,
+                               atol=ATOL)
+    # the coverage channel counts cells: exact
+    torch.testing.assert_close(pair[:, 1], two.reshape(pair.shape)[:, 1],
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("probe", [K.PROBE_NO_GATHER, K.PROBE_CONST_CELLS],
+                         ids=lambda p: p.mode)
+def test_probe_matches_its_plain_version(dev, probe):
+    grids, gidx, cells_ = _inputs(dev, 17, 700, 0.1, 4)
+    before = probe.launches
+    got = probe(grids, gidx, *cells_, 3, 3, 1, 1)
+    assert probe.launches == before + 1
+    want = K.probe_plain(probe.mode, grids, gidx, *cells_, _lattice(3, 1, dev),
+                         _lattice(3, 1, dev))
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
 def test_masked_loop_on_the_card_matches_cpu(dev):
@@ -287,6 +443,8 @@ def test_keyframe_step_makes_no_host_sync(dev):
     est = torch.as_tensor(slam.infos[-1].pose, device=dev)
     ranges = torch.as_tensor(traj.ranges[t], device=dev)
     torch.cuda.synchronize()
+    launches = [k.launches for k in (K.SCORE_VOLUME, K.PROBE_NO_GATHER,
+                                     K.PROBE_CONST_CELLS)]
     torch.cuda.set_sync_debug_mode("error")
     try:
         state, info = S.keyframe_step(slam.state, est, ranges, cfg)
@@ -294,3 +452,6 @@ def test_keyframe_step_makes_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert int(state.graph.n_vertices) == 14
     assert np.isfinite(float(info.chi2))
+    # three K1 launches (close, near, loop), no probe
+    assert [K.SCORE_VOLUME.launches, K.PROBE_NO_GATHER.launches,
+            K.PROBE_CONST_CELLS.launches] == [launches[0] + 3] + launches[1:]

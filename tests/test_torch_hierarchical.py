@@ -72,6 +72,41 @@ def test_strided_plain_matches_reference(ny, nx, stride):
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("ny,nx,stride,n_base", [(6, 12, 8, 1), (2, 2, 4, 5),
+                                                 (2, 2, 2, 5), (2, 2, 1, 5)])
+def test_pair_plain_matches_reference(ny, nx, stride, n_base):
+    """K2's fused ``known_cap`` pair, plain (``volume_pair_plain`` through
+    ``score_volume_auto``), against the reference's known-cap scoring at
+    the level-0 and refine lattices: ``score_volume`` over ``g·known`` and
+    over ``known`` for every base, as its ``level_search`` does. Sum order
+    only: rtol 1e-5, atol 1e-6."""
+    grid, center, res, mov, valid = _setup(seed=5)
+    cap = 0.2 * 0.999          # the grid saturates at its 0.2 m radius
+    rng = np.random.default_rng(stride)
+    bases = np.concatenate([rng.uniform(-0.5, 0.5, (n_base, 2)),
+                            rng.uniform(-0.5, 0.5, (n_base, 1))],
+                           1).astype(np.float32)
+    thetas = np.asarray(JS.make_lattice(0.1, 0.05))
+    ty = np.arange(-ny, ny + 1, dtype=np.int32) * stride
+    tx = np.arange(-nx, nx + 1, dtype=np.int32) * stride
+    known = (jf(grid) < cap).astype(jnp.float32)
+    assert 0 < float(known.mean()) < 1
+    got = TS.score_volume_auto(
+        tf(grid)[None], torch.zeros(n_base, dtype=torch.int32),
+        tf(center)[None].expand(n_base, 2), res, tf(mov),
+        torch.as_tensor(valid)[None].expand(n_base, -1), tf(bases),
+        tf(thetas), ty, tx, kind="strided", known_cap=cap)
+    assert got.shape == (n_base, 2, len(thetas), 2 * ny + 1, 2 * nx + 1)
+    for b in range(n_base):
+        for ch, g in enumerate((jf(grid) * known, known)):
+            want = JS.score_volume(g, jf(center), res, jf(mov),
+                                   jnp.asarray(valid), jf(bases[b]),
+                                   jf(thetas), jnp.asarray(ty),
+                                   jnp.asarray(tx))
+            np.testing.assert_allclose(npy(got[b, ch]), np.asarray(want),
+                                       rtol=RTOL, atol=ATOL)
+
+
 def test_strided_lattice_checks():
     assert TS._stride(np.arange(-6, 7) * 8) == (6, 8)
     assert TS._stride(np.arange(-2, 3)) == (2, 1)
@@ -94,6 +129,38 @@ def test_strided_lattice_checks():
         K.SCORE_VOLUME_STRIDED(tf(grid)[None],
                                torch.zeros(1, dtype=torch.int32), *cells,
                                2, 2, 4, 4)
+
+
+def test_pair_and_probes_take_cuda_tensors_only():
+    """The pair and the probes launch a kernel or raise: on CPU tensors
+    they raise, and a known-cap search on the CPU takes the plain pair
+    without counting a launch; ``known_cap`` needs the strided kind."""
+    grid, center, res, mov, valid = _setup()
+    cells = K.volume_cells(tf(center)[None], res, grid.shape[-1], tf(mov),
+                           torch.as_tensor(valid)[None], torch.zeros(1, 3),
+                           torch.zeros(1))
+    args = (tf(grid)[None], torch.zeros(1, dtype=torch.int32)) + cells
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.SCORE_VOLUME_STRIDED(*args, 2, 2, 4, 4, 0.1)
+    for probe in (K.PROBE_NO_GATHER, K.PROBE_CONST_CELLS):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            probe(*args, 2, 2, 1, 1)
+    with pytest.raises(ValueError, match="unknown probe"):
+        K.probe_plain("x3", *args, torch.zeros(1), torch.zeros(1))
+    before = K.SCORE_VOLUME_STRIDED.launches
+    vol = TS.score_volume_auto(
+        tf(grid)[None], torch.zeros(1, dtype=torch.int32), tf(center)[None],
+        res, tf(mov), torch.as_tensor(valid)[None], torch.zeros(1, 3),
+        torch.zeros(1), np.arange(-2, 3) * 4, np.arange(-2, 3) * 4,
+        kind="strided", known_cap=0.1)
+    assert vol.shape == (1, 2, 1, 5, 5)
+    assert K.SCORE_VOLUME_STRIDED.launches == before
+    with pytest.raises(ValueError, match="strided kind"):
+        TS.score_volume_auto(
+            tf(grid)[None], torch.zeros(1, dtype=torch.int32),
+            tf(center)[None], res, tf(mov), torch.as_tensor(valid)[None],
+            torch.zeros(1, 3), torch.zeros(1), torch.arange(-2, 3),
+            torch.arange(-2, 3), known_cap=0.1)
 
 
 @pytest.mark.parametrize("w", [2, 4, 8])
