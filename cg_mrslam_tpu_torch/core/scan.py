@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from cg_mrslam_tpu_torch.utils import se2
@@ -63,6 +64,37 @@ def set_scan(s: ScanSet, index, ranges: torch.Tensor) -> ScanSet:
     m = s.smask.clone()
     m[idx] = torch.ones((), dtype=torch.bool, device=m.device)
     return dataclasses.replace(s, ranges=r, smask=m)
+
+
+def resample_scan_np(ranges, src_fba: float, src_step: float,
+                     src_maxr: float, dst_beams: int, dst_fba: float,
+                     dst_step: float, dst_maxr: float) -> np.ndarray:
+    """Angle-exact host-side resample of one scan ``[B_src]`` (or a stack
+    ``[T, B_src]``) onto another beam grid (numpy; a copy of the
+    reference's, which log ingestion uses):
+
+    * interpolation is over the real beam angles of both grids;
+    * invalid returns (``<= 0`` or ``>= max_range``) do not blend into
+      their neighbours: a destination beam whose bracketing source beams
+      include an invalid one reads ``dst_maxr``;
+    * destination beams outside the source fov read ``dst_maxr``.
+    """
+    ranges = np.asarray(ranges, np.float32)
+    squeeze = ranges.ndim == 1
+    rows = ranges[None] if squeeze else ranges
+    b_src = rows.shape[-1]
+    src_a = src_fba + src_step * np.arange(b_src)
+    dst_a = dst_fba + dst_step * np.arange(dst_beams)
+    out = np.empty((rows.shape[0], dst_beams), np.float32)
+    for t in range(rows.shape[0]):
+        r = rows[t]
+        invalid = (r <= 0.0) | (r >= src_maxr * 0.9999)
+        vals = np.interp(dst_a, src_a, np.minimum(r, src_maxr))
+        inv = np.interp(dst_a, src_a, invalid.astype(np.float64))
+        oob = (dst_a < src_a[0] - 1e-9) | (dst_a > src_a[-1] + 1e-9)
+        vals = np.where((inv > 1e-9) | oob, dst_maxr, vals)
+        out[t] = np.minimum(vals, dst_maxr)
+    return out[0] if squeeze else out
 
 
 def beam_angles(s: ScanSet) -> torch.Tensor:

@@ -557,6 +557,39 @@ def keyframe_step_bucketed(state: SlamState, est, ranges, cfg: Config,
     return new_state, _unpack_info(_pack_info(info).cpu().numpy())
 
 
+def state_from_g2o(cfg: Config, path: str, my_id: int = 0,
+                   device=None) -> SlamState:
+    """Resume: a SlamState rebuilt from a saved ``.g2o`` checkpoint (the
+    reference's ``loadGraph``, ``graph_slam.cpp:625-628``), on ``device``
+    (the card by default). Vertex ownership comes back from the id
+    namespacing ``id = runningId + robotId·baseId``."""
+    from cg_mrslam_tpu_torch.io import g2o
+
+    dev = resolve_device(device)
+    loaded = g2o.load(path, max_vertices=cfg.max_vertices,
+                      max_edges=cfg.max_edges, device=dev)
+    if loaded.scans is None:
+        raise ValueError(f"{path} carries no ROBOTLASER1 scans")
+    ids = loaded.ids
+    v_owner = np.where(ids >= 0, ids // cfg.slam.base_id, my_id)
+    v_remote = np.where(ids >= 0, ids % cfg.slam.base_id, -1)
+    g = loaded.graph
+    if not loaded.has_edge_meta:
+        # a .g2o without CGM_EDGE_META provenance lines: each edge is
+        # attributed to its first endpoint's owner (a file this package
+        # saved carries the exact owner and level instead)
+        e_owner = v_owner[g.e_ij[:, 0].cpu().numpy()]
+        g = dataclasses.replace(g, e_owner=torch.as_tensor(
+            e_owner, dtype=torch.int32, device=dev))
+    buf = CL.empty(cfg.slam.window_loop_closure * cfg.max_regions
+                   * LC_HYPOTHESES, dev)
+    return SlamState(
+        graph=g, scans=loaded.scans, buffer=buf,
+        my_id=torch.tensor(my_id, dtype=torch.int32, device=dev),
+        v_owner=torch.as_tensor(v_owner, dtype=torch.int32, device=dev),
+        v_remote=torch.as_tensor(v_remote, dtype=torch.int32, device=dev))
+
+
 class BucketRunner:
     """Host-side bucketed stepping: tracks the live vertex/edge counts and
     dispatches :func:`keyframe_step_bucketed`. (The reference's compile
@@ -602,6 +635,28 @@ class SingleRobotSlam:
         self.infos: list = []
         self.metrics = Recorder()
         self.runner = BucketRunner(cfg)
+
+    @classmethod
+    def resume(cls, cfg: Config, path: str, my_id: int = 0,
+               device=None) -> "SingleRobotSlam":
+        """Continue a run from a ``.g2o`` checkpoint, on ``device`` (the
+        card by default): dead reckoning restarts at the newest own
+        keyframe."""
+        from cg_mrslam_tpu_torch.utils.metrics import Recorder
+
+        self = cls.__new__(cls)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.state = state_from_g2o(cfg, path, my_id, self.device)
+        slots, _ = newest_own(self.state, 1)
+        g = self.state.graph
+        self._est = g.poses[slots[0]].cpu().numpy().astype(np.float64)
+        self._kf_est = self._est.copy()
+        self.infos = []
+        self.metrics = Recorder()
+        self.runner = BucketRunner(cfg, n_live=int(g.n_vertices),
+                                   e_live=int(g.n_edges))
+        return self
 
     def observe(self, rel_odom, ranges) -> bool:
         """Feed one odometry increment + scan; returns True when a keyframe

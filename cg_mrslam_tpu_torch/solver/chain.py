@@ -16,6 +16,11 @@ Merged multi-robot graphs take this path through the (owner,
 keyframe-index) slot permutation of :func:`chain_order`. :func:`chainable`
 says when the truncated system equals the full one.
 
+Every float sum over edges has one fixed order (bit-identical on repeat):
+the chain part through the solve's segment table (``solver/fixed_sum.py``),
+the loop part through the one-hot product ``U``, where the reference
+scatter-adds.
+
 The CG loops keep the reference's best-iterate tracking and its
 breakdown-safe exit selection (:func:`_select_cg_iterate`). Their
 tolerance exits run as :func:`solver.spd.masked_loop` (a static budget
@@ -33,6 +38,7 @@ import torch
 from cg_mrslam_tpu_torch.core.graph import (PoseGraph, inverse_permutation,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
+from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, segment_sum
 from cg_mrslam_tpu_torch.solver.spd import (_spd_inverse_rec, masked_loop,
                                             spd_inverse)
 from cg_mrslam_tpu_torch.utils import se2
@@ -118,14 +124,26 @@ class _Tridiag(NamedTuple):
     free: torch.Tensor   # [N] bool
 
 
-def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3):
+def _edge_table(g: PoseGraph, edge_mask) -> torch.Tensor:
+    """The solve's segment table of the active edges' ends: fixed for a
+    solve, so built once (one host read) and passed to every
+    :func:`_assemble`."""
+    is_chain, is_loop = chain_masks(g, edge_mask)
+    return edge_table(g.e_ij, is_chain | is_loop, g.poses.shape[0])
+
+
+def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
+              table: torch.Tensor | None = None):
     """One linearization → (tridiagonal chain part, gradient ``b``, loop
-    factors ``(li, lj, lJi, lJj, lom)``, dropped). Loop edges beyond
-    ``loop_cap`` are left out of the whole truncated system."""
+    factors ``(li, lj, lJi, lJj, lom, U)``, dropped). Loop edges beyond
+    ``loop_cap`` are left out of the whole truncated system. ``table``:
+    the solve's :func:`_edge_table` (built here if not given)."""
     n = g.poses.shape[0]
     dt = g.poses.dtype
     dev = g.poses.device
     is_chain, is_loop = chain_masks(g, edge_mask)
+    if table is None:
+        table = edge_table(g.e_ij, is_chain | is_loop, n)
     e, Ji, Jj = linearize(g.poses, g.e_ij, g.e_z)
     omega = unpack_info(g.e_info)
     vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
@@ -146,20 +164,16 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3):
     JjT_O = (Jjf.transpose(1, 2) @ omega) * cm
     Hjj = JjT_O @ Jjf
 
-    D = torch.zeros((n, 3, 3), dtype=dt, device=dev)
-    D.index_add_(0, vi, Hii)
-    D.index_add_(0, vj, Hjj)
-    L = torch.zeros((n, 3, 3), dtype=dt, device=dev)
-    L.index_add_(0, vi, Hij.transpose(1, 2) * cm)
+    D = segment_sum(table, torch.cat([Hii, Hjj]))
+    L = segment_sum(table, torch.cat([Hij.transpose(1, 2) * cm,
+                                      torch.zeros_like(Hij)]))
 
     # gradient over the edges IN the truncated system
     om_used = omega * mask_used.to(dt)[:, None, None]
     oe = (om_used @ e[:, :, None])                       # [E,3,1]
     bi = (Jif.transpose(1, 2) @ oe)[:, :, 0]
     bj = (Jjf.transpose(1, 2) @ oe)[:, :, 0]
-    b = torch.zeros((n, 3), dtype=dt, device=dev)
-    b.index_add_(0, vi, bi)
-    b.index_add_(0, vj, bj)
+    b = segment_sum(table, torch.cat([bi, bj]))
 
     eye = torch.eye(3, dtype=dt, device=dev)
     fb = free[:, None, None]
@@ -179,8 +193,14 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3):
     lJi = Jif[sel] * lm3
     lJj = Jjf[sel] * lm3
     lom = torch.where(lmask[:, None, None], omega[sel], eye)
+    # U[3i.., 3m..] = Jᵢ_mᵀ → [N, 3, 3M] (one-hot products: a fixed order)
+    m = li.shape[0]
+    Oi = torch.nn.functional.one_hot(li, n).to(dt)         # [M,N]
+    Oj = torch.nn.functional.one_hot(lj, n).to(dt)
+    U = (torch.einsum("mn,mac->ncma", Oi, lJi)
+         + torch.einsum("mn,mac->ncma", Oj, lJj)).reshape(n, 3, 3 * m)
     return (_Tridiag(D=D, Dt=D_true, L=L, free=free), b,
-            (li, lj, lJi, lJj, lom), dropped)
+            (li, lj, lJi, lJj, lom, U), dropped)
 
 
 def _inv3(a: torch.Tensor) -> torch.Tensor:
@@ -347,16 +367,10 @@ class _PrecondState(NamedTuple):
     lJj: torch.Tensor
 
 
-def _precond_setup(td: _Tridiag, loops, n: int) -> _PrecondState:
+def _precond_setup(td: _Tridiag, loops) -> _PrecondState:
     """Factor the damped chain and build the Woodbury correction."""
-    li, lj, lJi, lJj, lom = loops
+    li, lj, lJi, lJj, lom, U = loops
     m = li.shape[0]
-    dt = td.D.dtype
-    # U[3i.., 3m..] = Jᵢ_mᵀ → [N, 3, 3M]
-    Oi = torch.nn.functional.one_hot(li, n).to(dt)         # [M,N]
-    Oj = torch.nn.functional.one_hot(lj, n).to(dt)
-    U = (torch.einsum("mn,mac->ncma", Oi, lJi)
-         + torch.einsum("mn,mac->ncma", Oj, lJj)).reshape(n, 3, 3 * m)
 
     fact = _cr_factor(td.D, td.L)
     HinvU = _cr_apply(fact, U)                              # [N,3,3M]
@@ -396,7 +410,7 @@ def _precond(pst: _PrecondState, r: torch.Tensor) -> torch.Tensor:
 def _h_matvec(td: _Tridiag, loops, x: torch.Tensor) -> torch.Tensor:
     """TRUE ``H x = (Hc + U Ω Uᵀ) x`` for ``x [..., N, 3]`` — undamped
     diagonal blocks."""
-    li, lj, lJi, lJj, lom = loops
+    li, lj, lJi, lJj, lom, U = loops
     D, L = td.Dt, td.L
     xp = torch.cat([torch.zeros_like(x[..., :1, :]), x[..., :-1, :]], -2)
     xn = torch.cat([x[..., 1:, :], torch.zeros_like(x[..., :1, :])], -2)
@@ -407,9 +421,7 @@ def _h_matvec(td: _Tridiag, loops, x: torch.Tensor) -> torch.Tensor:
     utx = _ut(lJi, lJj, li, lj, x)
     utx = utx.reshape(utx.shape[:-1] + (-1, 3))             # [...,M,3]
     w = torch.einsum("mij,...mj->...mi", lom, utx)
-    y = y.index_add(-2, li, torch.einsum("mji,...mj->...mi", lJi, w))
-    y = y.index_add(-2, lj, torch.einsum("mji,...mj->...mi", lJj, w))
-    return y
+    return y + torch.einsum("ncq,...q->...nc", U, w.flatten(-2))
 
 
 def _select_cg_iterate(x_fin, rr2_fin, x_best, rr2_best):
@@ -472,11 +484,12 @@ def _pcg_best(hmv, prec, rhs: torch.Tensor, bn: torch.Tensor, tol2: float,
 
 def _chain_delta_impl(g: PoseGraph, edge_mask, loop_cap: int,
                       cg_tol: float = 1e-6, cg_iters: int = 48,
-                      damp: float = 1e-3):
+                      damp: float = 1e-3,
+                      table: torch.Tensor | None = None):
     """One GN update via preconditioned CG on the CURRENT true H."""
-    n = g.poses.shape[0]
-    td, b, loops, dropped = _assemble(g, edge_mask, loop_cap, damp=damp)
-    pst = _precond_setup(td, loops, n)
+    td, b, loops, dropped = _assemble(g, edge_mask, loop_cap, damp=damp,
+                                      table=table)
+    pst = _precond_setup(td, loops)
     bb = -b
     bn = torch.clamp(torch.sum(bb * bb), min=1e-30)
     dx = _pcg_best(lambda x: _h_matvec(td, loops, x),
@@ -521,10 +534,11 @@ def optimize_chain(g: PoseGraph, iterations: int = 5,
         return (out, dropped) if return_dropped else out
 
     dmax = torch.zeros((), dtype=torch.int32, device=g.poses.device)
+    table = _edge_table(g, edge_mask)
     for _ in range(iterations):
         dx, dropped = _chain_delta_impl(g, edge_mask, loop_cap,
                                         cg_tol=cg_tol, cg_iters=cg_iters,
-                                        damp=damp)
+                                        damp=damp, table=table)
         g = dataclasses.replace(g, poses=se2.oplus(g.poses, dx))
         dmax = torch.maximum(dmax, dropped)
     return (g, dmax) if return_dropped else g
@@ -550,7 +564,7 @@ def marginal_covariance_chain(g: PoseGraph, query: torch.Tensor,
     dt = g.poses.dtype
     dev = g.poses.device
     td, _, loops, _ = _assemble(g, edge_mask, loop_cap, damp=damp)
-    pst = _precond_setup(td, loops, n)
+    pst = _precond_setup(td, loops)
     q = query.shape[0]
     qs = torch.repeat_interleave(query.long(), 3)               # [3Q]
     cs = torch.arange(3, device=dev).repeat(q)                  # [3Q]

@@ -11,13 +11,13 @@ the band from the graph's capacity: dense up to ``DENSE_MAX`` (or
 (``solver/chain.py``) where the graph is chainable and matrix-free PCG
 (``solver/pcg.py``) where it is not; PCG above ``PCG_MIN``.
 
-Two substitutions of TPU-only forms:
+Assembly keeps the reference's one-hot selection products: a scatter-add
+on the card would add the per-edge blocks with atomics, in an order that
+changes from run to run; a product with the one-hot matrices adds them in
+one fixed order (bit-identical on repeat) and needs no host
+synchronization. Its work grows with N²·E, which the dense band bounds.
+One substitution of a TPU-only form:
 
-* assembly scatter-adds the per-edge 3×3 blocks with ``index_add_``
-  instead of the reference's one-hot selection einsums (a workaround for
-  serialized TPU scatters). The sums are the same; their order differs —
-  on the card the scatter uses atomics, so results vary in the last bits
-  from run to run;
 * ``cho_factor``/``cho_solve`` become ``torch.linalg.cholesky_ex`` +
   ``torch.cholesky_solve``: no host sync, and a matrix that is not positive
   definite yields NaN as ``jax.scipy.linalg.cho_factor`` does, instead of
@@ -76,9 +76,9 @@ def _free_mask(g: PoseGraph, edge_mask: torch.Tensor) -> torch.Tensor:
 def build_normal_equations(g: PoseGraph,
                            edge_mask: torch.Tensor | None = None
                            ) -> NormalEq:
-    """Assemble H = Σ JᵀΩJ and b = Σ JᵀΩe over active edges by scattering
-    the four 3×3 blocks of every edge into an ``[N, N, 3, 3]`` block
-    array."""
+    """Assemble H = Σ JᵀΩJ and b = Σ JᵀΩe over active edges: the four 3×3
+    blocks of every edge summed into an ``[N, 3, N, 3]`` block array by
+    one-hot products (a fixed order; bit-identical on repeat)."""
     n = g.poses.shape[0]
     dt = g.poses.dtype
     emask_b = g.emask if edge_mask is None else edge_mask
@@ -95,17 +95,19 @@ def build_normal_equations(g: PoseGraph,
     bi = (JiT_O @ e[:, :, None])[:, :, 0]
     bj = (JjT_O @ e[:, :, None])[:, :, 0]
 
-    vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
-    blocks = torch.zeros((n * n, 3, 3), dtype=dt, device=g.poses.device)
-    blocks.index_add_(0, vi * n + vi, Hii)
-    blocks.index_add_(0, vi * n + vj, Hij)
-    blocks.index_add_(0, vj * n + vi, Hij.transpose(1, 2))
-    blocks.index_add_(0, vj * n + vj, Hjj)
-    H = blocks.reshape(n, n, 3, 3).permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
-
-    bv = torch.zeros((n, 3), dtype=dt, device=g.poses.device)
-    bv.index_add_(0, vi, bi)
-    bv.index_add_(0, vj, bj)
+    # every block summed by products with the one-hot endpoint matrices
+    # (the reference's form): off[a, i, b, j] = Σ_e [vi=a] Hij[e,i,j] [vj=b]
+    ar = torch.arange(n, device=g.poses.device)
+    oi = (g.e_ij[:, 0, None] == ar[None]).to(dt)            # [E,N]
+    oj = (g.e_ij[:, 1, None] == ar[None]).to(dt)
+    ne = Hij.shape[0]
+    diag = (oi.T @ Hii.reshape(ne, 9) + oj.T @ Hjj.reshape(ne, 9))
+    off = (oi.T @ (Hij.reshape(ne, 9, 1) * oj[:, None, :]).reshape(
+        ne, 9 * n)).reshape(n, 3, 3, n).permute(0, 1, 3, 2)  # [a,i,b,j]
+    H4 = off + off.permute(2, 3, 0, 1)
+    H4[ar, :, ar, :] += diag.reshape(n, 3, 3)
+    H = H4.reshape(3 * n, 3 * n)
+    bv = oi.T @ bi + oj.T @ bj
 
     free3 = torch.repeat_interleave(_free_mask(g, emask_b), 3).to(dt)
     return NormalEq(H=H, b=bv.reshape(3 * n), free3=free3)

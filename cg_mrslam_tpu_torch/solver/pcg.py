@@ -1,8 +1,10 @@
 """Matrix-free preconditioned conjugate gradient for large pose graphs.
 
 Port of ``cg_mrslam_tpu/solver/pcg.py``: the Hessian is never formed — a
-Hessian-vector product is two gathers and a scatter-add over the edge
-list — and CG is preconditioned by the damped (chain-tridiagonal +
+Hessian-vector product is gathers and a sum over each vertex's edges
+(through the solve's segment table, ``solver/fixed_sum.py``: one fixed
+order, bit-identical on repeat, where the reference scatter-adds) — and CG
+is preconditioned by the damped (chain-tridiagonal +
 full-diagonal) matrix factorized with the chain solver's cyclic
 reduction. The fallback of the chain band for graphs that are not
 ``chainable``.
@@ -24,6 +26,7 @@ from cg_mrslam_tpu_torch.core.graph import (PoseGraph, inverse_permutation,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
 from cg_mrslam_tpu_torch.solver.chain import GROUP, _cr_apply, _cr_factor
+from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, segment_sum
 from cg_mrslam_tpu_torch.solver.spd import masked_loop
 from cg_mrslam_tpu_torch.utils import se2
 
@@ -37,10 +40,24 @@ class EdgeFactors(NamedTuple):
     b: torch.Tensor       # [N, 3] gradient blocks (Σ JᵀΩe)
     diag: torch.Tensor    # [N, 3, 3] diagonal Hessian blocks
     free: torch.Tensor    # [N] bool
+    table: torch.Tensor   # [N, W] each vertex's active edge ends
+    hvp_edge: torch.Tensor  # [N, W] the edge of each table entry
+    hvp_J: torch.Tensor     # [N, W, 3, 3] its Jacobian at this vertex (0: pad)
 
 
-def _factorize(g: PoseGraph, edge_mask) -> EdgeFactors:
+def _edge_table(g: PoseGraph, edge_mask) -> torch.Tensor:
+    """The solve's segment table (``solver/fixed_sum.py``): fixed for a
+    solve, so built once (one host read) and passed to every
+    :func:`_factorize`."""
     mask = g.emask if edge_mask is None else edge_mask
+    return edge_table(g.e_ij, mask, g.poses.shape[0])
+
+
+def _factorize(g: PoseGraph, edge_mask,
+               table: torch.Tensor | None = None) -> EdgeFactors:
+    mask = g.emask if edge_mask is None else edge_mask
+    if table is None:
+        table = _edge_table(g, edge_mask)
     dt = g.poses.dtype
     dev = g.poses.device
     e, Ji, Jj = linearize(g.poses, g.e_ij, g.e_z)
@@ -54,18 +71,20 @@ def _factorize(g: PoseGraph, edge_mask) -> EdgeFactors:
 
     n = g.poses.shape[0]
     vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
-    b = torch.zeros((n, 3), dtype=dt, device=dev)
-    b.index_add_(0, vi, bi)
-    b.index_add_(0, vj, bj)
-    diag = torch.zeros((n, 3, 3), dtype=dt, device=dev)
-    diag.index_add_(0, vi, Hii)
-    diag.index_add_(0, vj, Hjj)
+    b = segment_sum(table, torch.cat([bi, bj]))
+    diag = segment_sum(table, torch.cat([Hii, Hjj]))
     em = mask.to(torch.int32)
     deg = torch.zeros((n,), dtype=torch.int32, device=dev)
     deg.index_add_(0, vi, em)
     deg.index_add_(0, vj, em)
     free = g.vmask & ~g.fixed & (deg > 0)
-    return EdgeFactors(Ji=Ji, Jj=Jj, omega=omega, b=b, diag=diag, free=free)
+    # the table's entries as (edge, Jacobian) pairs for the HVP: entry
+    # k < E is edge k's i end, E + k its j end, 2E the zero pad
+    ne = Ji.shape[0]
+    edge_of = torch.arange(2 * ne + 1, device=dev) % ne
+    J2 = torch.cat([Ji, Jj, torch.zeros_like(Ji[:1])])
+    return EdgeFactors(Ji=Ji, Jj=Jj, omega=omega, b=b, diag=diag, free=free,
+                       table=table, hvp_edge=edge_of[table], hvp_J=J2[table])
 
 
 def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
@@ -93,8 +112,8 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
     # is already zero on masked edges)
     cm = ((vj == vi + 1) & free[vi] & free[vj]).to(dt)
     Hij = (f.Ji.transpose(1, 2) @ f.omega @ f.Jj) * cm[:, None, None]
-    L = torch.zeros((n, 3, 3), dtype=dt, device=dev)
-    L.index_add_(0, vi, Hij.transpose(1, 2))
+    L = segment_sum(f.table, torch.cat([Hij.transpose(1, 2),
+                                        torch.zeros_like(Hij)]))
     L[n - 1] = 0.0
 
     fact = _cr_factor(D, L, group=GROUP)
@@ -109,16 +128,17 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
 
 
 def _hvp(g: PoseGraph, f: EdgeFactors, x: torch.Tensor) -> torch.Tensor:
-    """``H @ x`` for ``x [..., N, 3]`` as gathers + scatter-add."""
+    """``H @ x`` for ``x [..., N, 3]``: gathers, and per vertex one sum over
+    its table of edges (a fixed order)."""
     vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
-    # Ω (Jᵢ xᵢ + Jⱼ xⱼ) per edge, then Jᵀ-scattered to both endpoints; the
-    # edges are the batch of each einsum over all of x's leading columns
+    # w = Ω (Jᵢ xᵢ + Jⱼ xⱼ) per edge (the edges are the batch of each einsum
+    # over all of x's leading columns); then y_n = Σ over n's table entries
+    # of Jᵀ w, one product contracting each vertex's entries and their 3
+    # components together
     u = (torch.einsum("eij,...ej->...ei", f.Ji, x[..., vi, :])
          + torch.einsum("eij,...ej->...ei", f.Jj, x[..., vj, :]))
     w = torch.einsum("eij,...ej->...ei", f.omega, u)
-    yi = torch.einsum("eji,...ej->...ei", f.Ji, w)
-    yj = torch.einsum("eji,...ej->...ei", f.Jj, w)
-    y = torch.zeros_like(x).index_add(-2, vi, yi).index_add(-2, vj, yj)
+    y = torch.einsum("nwji,...nwj->...ni", f.hvp_J, w[..., f.hvp_edge, :])
     return y * f.free[:, None].to(x.dtype)
 
 
@@ -127,11 +147,13 @@ def _dot(a, b):
 
 
 def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
-              cg_iters: int = 64, tol: float = 1e-8) -> torch.Tensor:
+              cg_iters: int = 64, tol: float = 1e-8,
+              table: torch.Tensor | None = None) -> torch.Tensor:
     """One GN update direction ``dx [N,3]`` by chain-preconditioned PCG
     on the true Hessian. As in the reference, a step whose new residual
-    falls below ``tol`` is not taken: the state stays frozen before it."""
-    f = _factorize(g, edge_mask)
+    falls below ``tol`` is not taken: the state stays frozen before it.
+    ``table``: the solve's :func:`_edge_table` (built here if not given)."""
+    f = _factorize(g, edge_mask, table)
     freeb = f.free[:, None].to(g.poses.dtype)
     precond = _tridiag_precond(g, f)
     b = -f.b * freeb
@@ -230,7 +252,8 @@ def optimize_pcg(g: PoseGraph, iterations: int = 5,
         gp = optimize_pcg(permute_vertices(g, order), iterations, edge_mask,
                           cg_iters)
         return dataclasses.replace(g, poses=gp.poses[inv])
+    table = _edge_table(g, edge_mask)
     for _ in range(iterations):
-        dx = pcg_delta(g, edge_mask, cg_iters=cg_iters)
+        dx = pcg_delta(g, edge_mask, cg_iters=cg_iters, table=table)
         g = dataclasses.replace(g, poses=se2.oplus(g.poses, dx))
     return g

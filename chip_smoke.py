@@ -52,7 +52,29 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    hypotheses, and those voted in): every round's outcomes — vertices,
    foreign and parked vertices, buffered hypotheses, inter-robot closures,
    star edges — equal to the card's, own keyframe poses within 1e-3 m /
-   rad.
+   rad;
+9. the command line (``python -m cg_mrslam_tpu_torch``, each command a
+   subprocess in ``chiprun_out/cli/``, on the card; each must exit 0):
+   (a) ``srslam`` at the default deployment: as many keyframe lines as
+   phase 3 had keyframes, closures within ±1; its ``.g2o`` loads through
+   both parsers alike (ids, edges, poses within 1e-6); the loaded graph's
+   chi2 equals the last printed chi2 (1e-3 relative, or the print's
+   rounding); its ATE within 0.02 m
+   of phase 3's; its map's sides a multiple of 128 and its occupied share
+   in (0.001, 0.2), the share of its occupied cells within 0.1 m of a wall
+   printed; the same scans integrated at the ground-truth keyframe poses
+   hold ``tests/test_occupancy.py``'s bar (≥ 90% of the occupied cells
+   within 0.1 m of a wall, occupied share in (0.001, 0.2)); the metrics JSONL
+   written; the largest pose difference against phase 3 printed. Then
+   ``integrate`` (ms, peak memory), ``g2o.save`` and ``load`` (native and
+   Python) timed on that graph. (b) ``srslam --ticks 800``, then
+   ``SingleRobotSlam.resume`` of its ``.g2o`` in this process fed the rest
+   of the route (as ``tests/test_resume.py`` does): the reloaded vertices
+   and poses, finite chi2, ATE below the odometry-only ATE. (c) ``srslam
+   --carmen`` on the route's first 400 ticks written with the port's
+   ``carmen.write``: keyframes and a ``.g2o``. (d) ``cg_mrslam --nRobots 2
+   --ticks 300``: two ``.g2o`` files and two maps, an accepted inter-robot
+   closure, each graph holding the peer's namespaced keyframes.
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -65,8 +87,12 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
+import shutil
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -96,6 +122,10 @@ REPLACES_PROBE = {
     "const_cells": "cg_mrslam_tpu/ops/correlate.py:257 (_make_kernel_x2, "
                    "timing probe; pallas_call at :454)"}
 SOURCE = "cg_mrslam_tpu_torch/csrc/score_volume.cu"
+ROOT = Path(__file__).resolve().parent
+CLI_DIR = ROOT / "chiprun_out" / "cli"
+# the resumed run of phase 9: saved at this tick, resumed in this process
+RESUME_TICK = 800
 
 
 def log(*a):
@@ -540,6 +570,228 @@ def run_mr(device, max_ticks=None, capture=None):
     return sim, times, log
 
 
+def run_cli(*argv: str):
+    """``python -m cg_mrslam_tpu_torch argv`` in ``chiprun_out/cli/`` on the
+    card; fails unless it exits 0. Returns its stdout and wall seconds."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cg_mrslam_tpu_torch",
+                          *argv], cwd=CLI_DIR, env=env, capture_output=True,
+                         text=True)
+    wall = time.perf_counter() - t0
+    name = argv[argv.index("-o") + 1]
+    (CLI_DIR / f"{name}.log").write_text(res.stdout + res.stderr)
+    assert res.returncode == 0, (argv, res.returncode, res.stderr[-3000:])
+    log(f"cli: {' '.join(argv)}: exit 0 in {wall:.1f} s")
+    return res.stdout, wall
+
+
+def keyframe_lines(stdout: str) -> list:
+    """``(closures, chi2)`` of each ``keyframe`` line of an ``srslam`` run."""
+    out = []
+    for line in stdout.splitlines():
+        if line.startswith("keyframe "):
+            f = dict(t.split("=", 1) for t in line.split()[2:])
+            out.append((int(f["closures"].lstrip("+")), float(f["chi2"])))
+    return out
+
+
+def wall_distance(pts: np.ndarray, segs: np.ndarray) -> np.ndarray:
+    """Distance from each point ``[P,2]`` to the nearest segment ``[S,4]``."""
+    a, b = segs[None, :, :2], segs[None, :, 2:]
+    ab = b - a
+    t = np.clip(np.sum((pts[:, None] - a) * ab, -1)
+                / np.maximum(np.sum(ab * ab, -1), 1e-12), 0.0, 1.0)
+    near = a + t[..., None] * ab
+    return np.min(np.linalg.norm(pts[:, None] - near, axis=-1), axis=1)
+
+
+def read_map(base: Path):
+    """A ``.pgm/.yaml`` map: the image (row 0 at the top), its origin and
+    resolution."""
+    head, img = (base.with_suffix(".pgm")).read_bytes().split(b"255\n", 1)
+    w, h = map(int, head.split()[1:3])
+    meta = dict(line.split(": ", 1) for line in
+                base.with_suffix(".yaml").read_text().splitlines())
+    origin = [float(v) for v in meta["origin"].strip("[]").split(",")[:2]]
+    return (np.frombuffer(img, np.uint8).reshape(h, w), np.asarray(origin),
+            float(meta["resolution"]))
+
+
+def phase_cli(cfg, traj, fov, slam, kf_t) -> None:
+    """Phase 9: the command line (see the module docstring)."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.io import carmen, g2o
+    from cg_mrslam_tpu_torch.maps import occupancy as OCC
+    from cg_mrslam_tpu_torch.pipeline.slam import SingleRobotSlam
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    CLI_DIR.mkdir(parents=True)
+    walls = W.hospital_world(40.0, 20.0, seed=0).segments
+
+    # (a) the srslam default deployment
+    out, _ = run_cli("srslam", "-o", "smoke")
+    kfl = keyframe_lines(out)
+    n_kf = len(slam.infos)
+    closures = sum(i.closures_added for i in slam.infos)
+    assert len(kfl) == n_kf, (len(kfl), n_kf)
+    assert abs(sum(c for c, _ in kfl) - closures) <= 1, (kfl, closures)
+    path = str(CLI_DIR / "robot-0-smoke.g2o")
+    nat = g2o.load(path, native=True)
+    py = g2o.load(path, native=False)
+    np.testing.assert_array_equal(nat.ids, py.ids)
+    for name in ("e_ij", "emask", "e_owner", "e_level", "vmask", "fixed"):
+        assert torch.equal(getattr(nat.graph, name),
+                           getattr(py.graph, name)), name
+    assert float((nat.graph.poses - py.graph.poses).abs().max()) <= 1e-6
+    c2 = float(chi2(nat.graph))
+    # 1e-3 relative, or the rounding of the printed 2 decimals
+    assert abs(c2 - kfl[-1][1]) <= max(1e-3 * abs(kfl[-1][1]), 0.005), \
+        (c2, kfl[-1])
+    poses = nat.graph.poses.cpu().numpy()[:n_kf + 1]
+    gt = traj.gt[kf_t]
+    a_cli, a_p3 = ate(poses, gt), ate(slam.poses, gt)
+    assert abs(a_cli - a_p3) <= 0.02, (a_cli, a_p3)
+    # the file holds 6 decimals: phase 3's poses written the same way
+    p3 = np.asarray([[float(f"{v:.6f}") for v in p] for p in slam.poses],
+                    np.float32)
+    log(f"cli: srslam: {len(kfl)} keyframes, closures "
+        f"{sum(c for c, _ in kfl)} (phase 3: {closures}), loaded chi2 "
+        f"{c2:.4f} (printed {kfl[-1][1]:.2f}), ATE {a_cli:.4f} m (phase 3: "
+        f"{a_p3:.4f} m); largest pose difference against phase 3 "
+        f"{np.abs(poses - slam.poses).max():.3g} (against phase 3 written "
+        f"to 6 decimals: {np.abs(poses - p3).max():.3g})")
+    img, origin, res = read_map(CLI_DIR / "robot-0-smoke-map")
+    assert img.shape[0] % 128 == 0 and img.shape[1] % 128 == 0, img.shape
+    rows, cols = np.nonzero(img[::-1] == 0)          # OCCUPIED, y up
+    centers = origin + (np.stack([cols, rows], 1) + 0.5) * res
+    dist = wall_distance(centers, walls)
+    share = float((img == 0).mean())
+    log(f"cli: srslam map {img.shape} (the run's poses): {len(rows)} "
+        f"occupied cells, {float((dist <= 0.1).mean()):.4f} of them within "
+        f"0.1 m of a wall (distance p50 {np.median(dist):.3f} m, p90 "
+        f"{np.percentile(dist, 90):.3f} m), occupied share {share:.5f}")
+    assert 0.001 < share < 0.2, share
+    # the same scans at the ground-truth keyframe poses: the map module
+    # held to tests/test_occupancy.py's bar (the run's own map is off by
+    # its pose error, ATE above)
+    g = nat.graph
+    gt_poses = g.poses.clone()
+    gt_poses[:n_kf + 1] = torch.as_tensor(gt, dtype=torch.float32,
+                                          device="cuda")
+    pn = gt[:, :2]
+    center = OCC.map_center(gt, pad=10.0)
+    cells = int(np.ceil(((pn.max(0) - pn.min(0)).max() + 20.0)
+                        / cfg.map.resolution / 128.0)) * 128
+    mc = cfg.map
+
+    def integrate(poses):
+        return OCC.integrate(
+            poses, nat.scans, torch.as_tensor(center, device="cuda"),
+            cells=cells, resolution=mc.resolution, max_range=10.0,
+            usable_range=mc.usable_range, gain=mc.gain,
+            square_size=mc.square_size,
+            infinity_filling_range=mc.infinity_filling_range, angle=0.0,
+            robot_fill=mc.robot_fill)
+
+    tri = OCC.threshold(integrate(gt_poses)).cpu().numpy()
+    rows, cols = np.nonzero(tri == OCC.OCCUPIED)     # row 0 at y min
+    origin = center - mc.resolution * cells / 2.0
+    near = float((wall_distance(origin + (np.stack([cols, rows], 1) + 0.5)
+                                * mc.resolution, walls) <= 0.1).mean())
+    share = float((tri == OCC.OCCUPIED).mean())
+    log(f"cli: the same scans at the ground-truth poses: {len(rows)} "
+        f"occupied cells, {near:.4f} within 0.1 m of a wall, occupied "
+        f"share {share:.5f}")
+    assert near >= 0.9 and 0.001 < share < 0.2, (near, share)
+    metrics = CLI_DIR / "robot-0-smoke-metrics.jsonl"
+    assert metrics.stat().st_size > 0
+
+    # the outputs' own costs on this graph (455 vertices)
+    vm = g.vmask.cpu().numpy()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        integrate(g.poses)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n_samples = int(vm.sum()) * nat.scans.ranges.shape[1] * int(
+        math.ceil(10.0 / (mc.resolution / math.sqrt(2.0))) + 1)
+    io_ms = {}
+    for name, fn in (("save", lambda: g2o.save(str(CLI_DIR / "t.g2o"), g,
+                                               ids=nat.ids,
+                                               scans=nat.scans)),
+                     ("load native", lambda: g2o.load(path, native=True)),
+                     ("load python", lambda: g2o.load(path, native=False))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        io_ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+    log(f"cli: integrate {cells}^2 cells, {n_samples} samples: "
+        f"{np.median(ms):.2f} ms (median of 5), peak "
+        f"{peak:.3f} GiB above the inputs; at {int(vm.sum())} vertices "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in io_ms.items()))
+
+    # (b) resume: half the route through the command line, the rest here
+    out, _ = run_cli("srslam", "--ticks", str(RESUME_TICK), "-o", "half")
+    n_half = len(keyframe_lines(out))
+    assert n_half == int((kf_t[1:] < RESUME_TICK).sum()), n_half
+    half = str(CLI_DIR / "robot-0-half.g2o")
+    res = SingleRobotSlam.resume(cfg, half)
+    assert int(res.state.graph.n_vertices) == n_half + 1
+    saved = g2o.load(half, max_vertices=cfg.max_vertices,
+                     max_edges=cfg.max_edges)
+    assert torch.equal(res.state.graph.poses, saved.graph.poses)
+    assert int(res.state.scans.smask.sum()) == n_half + 1
+    ticks = list(kf_t[:n_half + 1])
+    for t in range(RESUME_TICK, len(traj.gt)):
+        if res.observe(traj.rel_odom[t - 1], traj.ranges[t]):
+            ticks.append(t)
+        if res.runner.n_live >= cfg.max_vertices - 2:
+            break
+    assert all(np.isfinite(i.chi2) for i in res.infos) and res.infos
+    a_res = ate(res.poses, traj.gt[ticks])
+    a_odo = ate(traj.odom[ticks], traj.gt[ticks])
+    log(f"cli: resume: {n_half + 1} vertices reloaded, {len(res.infos)} "
+        f"keyframes after; final chi2 {res.infos[-1].chi2:.4f}, ATE "
+        f"{a_res:.4f} m vs odometry ATE {a_odo:.4f} m")
+    assert a_res < a_odo, (a_res, a_odo)
+
+    # (c) a CARMEN log of the route's first 400 ticks
+    beams = traj.ranges.shape[1]
+    clf = CLI_DIR / "route.clf"
+    carmen.write(str(clf), traj.odom[:400], traj.ranges[:400], fov=fov,
+                 max_range=10.0, start_angle=-fov / 2,
+                 angular_step=fov / beams)
+    out, _ = run_cli("srslam", "--carmen", str(clf), "-o", "carmen")
+    n_c = len(keyframe_lines(out))
+    assert n_c > 0 and (CLI_DIR / "robot-0-carmen.g2o").exists(), n_c
+    log(f"cli: carmen: {n_c} keyframes")
+
+    # (d) two robots in one process
+    out, _ = run_cli("cg_mrslam", "--nRobots", "2", "--modality", "sim",
+                     "--ticks", "300", "-o", "mr")
+    accepted = [int(line.rsplit("=", 1)[1]) for line in out.splitlines()
+                if line.startswith("robot ") and "accepted=" in line]
+    assert len(accepted) == 2 and sum(accepted) >= 1, out[-2000:]
+    for r in range(2):
+        for ext in (".g2o", "-map.pgm", "-map.yaml"):
+            assert (CLI_DIR / f"robot-{r}-mr{ext}").exists(), (r, ext)
+        ids = g2o.load(str(CLI_DIR / f"robot-{r}-mr.g2o")).ids
+        ids = ids[ids >= 0]
+        assert ((ids // cfg.slam.base_id) == 1 - r).any(), r
+    log(f"cli: cg_mrslam: inter-robot closures accepted {accepted}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -769,6 +1021,11 @@ def main() -> int:
         f"{clog['rounds'][0][0]}..{clog['rounds'][-1][0]}), up to the first "
         f"inter-robot closure, agree with the card; outcomes "
         f"{rounds[-1]} in {time.perf_counter() - t0:.2f} s")
+
+    # --- 9. the command line ---
+    t0 = time.perf_counter()
+    phase_cli(cfg, traj, fov, slam, kf_t)
+    log(f"cli: phase 9 in {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": records + probe_records}), flush=True)

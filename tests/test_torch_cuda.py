@@ -3,8 +3,10 @@ and K2 (and K2's fused ``known_cap`` pair) against their plain version — at
 the main path's shapes and at edge cases, bit-identical on repeat, exact
 ties kept —, the timing probes against theirs and kept off the main path,
 their launch counts and input checks, the solver's masked loops and
-condense on the card against the CPU, and a keyframe step with no host
-synchronization. Every test carries the ``cuda`` marker and skips where
+condense on the card against the CPU, a keyframe step with no host
+synchronization, the solver's float sums repeated bit for bit (summed with
+``index_add_``, these repeats differed), and the occupancy map on the card
+against the CPU. Every test carries the ``cuda`` marker and skips where
 there is no NVIDIA GPU.
 
 This file imports neither JAX nor ``cg_mrslam_tpu``, so it also runs on a
@@ -15,6 +17,7 @@ machine without them (``tests/conftest.py`` imports JAX, hence
 """
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -455,3 +458,167 @@ def test_keyframe_step_makes_no_host_sync(dev):
     # three K1 launches (close, near, loop), no probe
     assert [K.SCORE_VOLUME.launches, K.PROBE_NO_GATHER.launches,
             K.PROBE_CONST_CELLS.launches] == [launches[0] + 3] + launches[1:]
+
+
+# --- fixed-order float sums in the solver: bit-identical repeats ---------
+#
+# Every float sum over edges on the solve path (dense assembly; the chain
+# band's D, L, b and its matrix-free product; the PCG band's b, diagonal,
+# preconditioner band L and Hessian-vector product) adds in one fixed
+# order, so repeating a call on the same inputs on the card gives the same
+# bits. (``index_add_`` added them with atomics, whose order changes from
+# run to run.)
+
+REPEATS = 20
+FIXTURE = Path(__file__).parent / "fixtures" / "merged_2robot_1024.npz"
+
+
+def _repeats_identical(fn, n=REPEATS):
+    """Call ``fn`` ``n`` times; every output tensor equal bit for bit to
+    the first call's (and finite)."""
+    first = fn()
+    first = first if isinstance(first, tuple) else (first,)
+    torch.cuda.synchronize()
+    for t in first:
+        assert bool(torch.isfinite(t).all())
+    for k in range(1, n):
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        for a, b in zip(first, out):
+            assert torch.equal(a, b), (k, float((a - b).abs().max()))
+
+
+def _merged(dev):
+    """The merged two-robot graph at capacity 1024 (plain numpy) on the
+    card, permuted into chain order, and its slot permutation."""
+    from cg_mrslam_tpu_torch.core import graph as G
+    from cg_mrslam_tpu_torch.solver import chain as CH
+
+    d = np.load(FIXTURE)
+    g = G.PoseGraph(*(torch.as_tensor(d[f]).to(dev) for f in (
+        "poses", "vmask", "fixed", "e_ij", "e_z", "e_info", "emask",
+        "e_level", "e_owner", "n_vertices", "n_edges")))
+    order = CH.chain_order(torch.as_tensor(d["v_owner"]).to(dev),
+                           torch.as_tensor(d["v_remote"]).to(dev), g.vmask)
+    return g, order
+
+
+@pytest.fixture(scope="module")
+def live_graph():
+    """A live ``srslam`` graph on the card (40 keyframes, capacity 128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from cg_mrslam_tpu_torch.config import Config, MatcherConfig
+    from cg_mrslam_tpu_torch.pipeline import slam as S
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    cfg = Config(close_matcher=MatcherConfig(extent=16.0, resolution=0.05,
+                                             kernel_radius=0.2),
+                 lc_matcher=MatcherConfig(extent=24.0, resolution=0.1,
+                                          kernel_radius=0.5),
+                 max_vertices=128, max_edges=512)
+    traj = W.simulate_robot(W.hospital_world(16.0, 10.0, seed=2),
+                            W.corridor_waypoints(16.0, 10.0, 0, 2), seed=5,
+                            beams=120, max_range=8.0, device="cuda")
+    slam = S.SingleRobotSlam(cfg, 120, traj.gt[0], traj.ranges[0],
+                             fov=1.5 * math.pi, max_range=8.0, device="cuda")
+    t = 1
+    while len(slam.infos) < 40:
+        slam.observe(traj.rel_odom[t - 1], traj.ranges[t])
+        t += 1
+    return slam.state
+
+
+def test_dense_assembly_repeats_bit_for_bit(dev, live_graph):
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    def build(g):
+        return lambda: tuple(gn.build_normal_equations(g))
+
+    _repeats_identical(build(live_graph.graph))
+    g, _ = _merged(dev)
+    _repeats_identical(build(g))
+
+
+def test_chain_assembly_and_product_repeat_bit_for_bit(dev, live_graph):
+    from cg_mrslam_tpu_torch.core.graph import permute_vertices
+    from cg_mrslam_tpu_torch.solver import chain as CH
+
+    g, order = _merged(dev)
+    for gp in (permute_vertices(g, order), live_graph.graph):
+        def assemble():
+            td, b, _, _ = CH._assemble(gp, None, 64)
+            return td.D, td.Dt, td.L, b
+
+        _repeats_identical(assemble)
+        td, _, loops, _ = CH._assemble(gp, None, 64)
+        x = torch.randn((8,) + gp.poses.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        _repeats_identical(lambda: CH._h_matvec(td, loops, x))
+
+
+def test_pcg_assembly_and_product_repeat_bit_for_bit(dev, live_graph):
+    from cg_mrslam_tpu_torch.core.graph import permute_vertices
+    from cg_mrslam_tpu_torch.solver import pcg as P
+
+    g, order = _merged(dev)
+    for gp in (permute_vertices(g, order), live_graph.graph):
+        gen = torch.Generator(dev).manual_seed(1)
+        r = torch.randn((8,) + gp.poses.shape, device=dev, generator=gen)
+        x = torch.randn((8,) + gp.poses.shape, device=dev, generator=gen)
+
+        def factorize():
+            f = P._factorize(gp, None)
+            # the preconditioner's band L enters through its solve
+            return f.b, f.diag, P._tridiag_precond(gp, f)(r)
+
+        _repeats_identical(factorize)
+        f = P._factorize(gp, None)
+        _repeats_identical(lambda: P._hvp(gp, f, x))
+
+
+def test_pcg_band_solve_repeats_bit_for_bit(dev):
+    """A whole PCG-band solve and marginal solve (the merged graph is not
+    chainable: PCG under the chain order)."""
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    g, order = _merged(dev)
+    query = torch.arange(100, 1000, 60, dtype=torch.int32, device=dev)
+    gn.BAND_CALLS.clear()
+    _repeats_identical(lambda: gn.optimize_auto(g, order=order).poses)
+    _repeats_identical(lambda: gn.marginal_covariance_auto(g, query,
+                                                           order=order))
+    assert set(gn.BAND_CALLS) == {("optimize_auto", "pcg"),
+                                  ("marginal_covariance_auto", "pcg")}
+
+
+def test_occupancy_on_the_card_matches_cpu(dev, live_graph):
+    """``integrate`` on the card against the CPU on a live graph: the same
+    totals, ≤ 0.1% of the cells off, each by at most two samples (the card
+    fuses ``origin + dir·t`` into one rounding, the CPU rounds twice: a
+    sample within an ulp of a cell boundary can change cell), the same
+    chunked or not."""
+    from cg_mrslam_tpu_torch.maps import occupancy as OCC
+
+    st = live_graph
+    kw = dict(cells=384, resolution=0.05, max_range=8.0,
+              infinity_filling_range=5.0)
+    center = torch.tensor([8.0, 5.0])
+    got = OCC.integrate(st.graph.poses, st.scans, center.to(dev), **kw)
+    cpu = [_to_cpu(st.graph).poses, _to_cpu(st.scans)]
+    want = OCC.integrate(cpu[0], cpu[1], center, **kw)
+    for a, b, unit in ((got.hits, want.hits, 3.0),
+                       (got.misses, want.misses, 1.0)):
+        a, b = a.cpu().numpy(), b.numpy()
+        assert a.sum() == b.sum() > 0
+        d = np.abs(a - b)
+        assert (d > 0).mean() <= 1e-3 and d.max() <= 2 * unit
+    assert bool((OCC.threshold(got) == OCC.OCCUPIED).any())
+
+
+def _to_cpu(obj):
+    import dataclasses
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
