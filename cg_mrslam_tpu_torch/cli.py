@@ -1,4 +1,5 @@
-"""Command line: ``srslam`` and ``cg_mrslam`` (all robots in one process).
+"""Command line: ``srslam`` and ``cg_mrslam`` (all robots in one process, or
+one robot per process over UDP).
 
 Port of ``cg_mrslam_tpu/cli.py``, with the same flags (the reference
 binaries' ``-resolution -maxScore -minInliers -windowLoopClosure
@@ -14,10 +15,14 @@ Usage (on the card; there is no device flag):
     python -m cg_mrslam_tpu_torch srslam --load robot-0-out.g2o -o more
     python -m cg_mrslam_tpu_torch srslam --carmen log.clf -o log
     python -m cg_mrslam_tpu_torch cg_mrslam --nRobots 2 --modality sim -o mr
+    python -m cg_mrslam_tpu_torch cg_mrslam --idRobot 0 --nRobots 2 -o udp &
+    python -m cg_mrslam_tpu_torch cg_mrslam --idRobot 1 --nRobots 2 -o udp
 
-``main(argv, device="cpu")`` runs the same on the CPU (the tests do). The
-per-process UDP deployment (``cg_mrslam --idRobot r`` with r ≥ 0) is not
-ported yet and raises ``NotImplementedError``.
+With ``--idRobot r`` (r ≥ 0) the process runs robot r alone and exchanges
+datagrams with its peers (``--baseAddr``, ``--basePort``; the native UDP
+transport, which raises when it cannot be built or bound), paced to wall
+time by ``--tick-seconds`` from ``--start-at``. ``main(argv, device="cpu")``
+runs the same on the CPU (the tests do).
 """
 
 from __future__ import annotations
@@ -267,6 +272,115 @@ def cmd_srslam(argv, device=None) -> int:
     return 0
 
 
+def _run_udp_node(a, device=None) -> int:
+    """One robot per process over UDP — the reference's deployment shape
+    (N ``cg_mrslam`` processes, datagrams between them). Every process
+    builds the same seeded world, so the trajectories agree without a
+    shared simulator."""
+    from cg_mrslam_tpu_torch.mr.node import RobotNode
+    from cg_mrslam_tpu_torch.mr.transport import UdpTransport
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    r = a.idRobot
+    cfg = _build_config(a, n_robots=a.nRobots)
+    world = W.hospital_world(a.world_width, a.world_height, seed=a.seed)
+    fov = 2 * np.pi * 0.75
+    traj = W.simulate_robot(
+        world, W.corridor_waypoints(a.world_width, a.world_height, r,
+                                    a.loops),
+        seed=a.seed + 7 * r, beams=a.beams, fov=fov, max_range=a.max_range,
+        odom_noise=tuple(a.odom_noise), device=device)
+    transport = UdpTransport(r, a.nRobots, base_addr=a.baseAddr,
+                             base_port=a.basePort)
+    try:
+        node = RobotNode(cfg, r, a.beams, traj.gt[0], traj.ranges[0], fov,
+                         a.max_range, transport, modality=a.modality,
+                         gt_pose=traj.gt[0], warm_start=a.warm_start,
+                         device=device)
+    except BaseException:
+        transport.close()
+        raise
+    try:
+        return _udp_loop(a, cfg, r, traj, node)
+    finally:
+        node.close()
+
+
+def _udp_loop(a, cfg, r, traj, node) -> int:
+    import time
+
+    transport = node.transport
+    if a.modality == "bag":
+        node.load_pings(a.pings)
+    if a.record_msgs:
+        node.record_messages(a.record_msgs)
+    print(f"robot {r}/{a.nRobots} on "
+          f"{transport.my_addr[0]}:{transport.my_addr[1]} "
+          f"({'native' if transport.native else 'python'} transport, "
+          f"modality {a.modality}, device {node.device.type})", flush=True)
+    checkpoints = _Checkpoints()
+    T = len(traj.gt) if not a.ticks else min(a.ticks, len(traj.gt))
+    t_wall = a.start_at or time.time()
+    if t_wall > time.time():
+        time.sleep(t_wall - time.time())
+    ran = 0
+    for t in range(1, T):
+        ran = t
+        if a.tick_seconds > 0:
+            lag = t_wall + t * a.tick_seconds - time.time()
+            if lag > 0:
+                time.sleep(lag)
+        now = 0.1 * t  # the 10 Hz main loop (cg_mrslam.cpp:206)
+        if a.modality == "bag":
+            node.bag_tick(now)
+        kf = node.observe(traj.rel_odom[t - 1], traj.ranges[t],
+                          gt_pose=traj.gt[t])
+        node.comm_round(now)
+        n_v = int(node.state.slam.graph.n_vertices)
+        if kf:
+            print(f"t={t} keyframe {n_v - 1} sent={node.stats['sent']} "
+                  f"recv={node.stats['received']}", flush=True)
+            if a.save_every_keyframe:
+                checkpoints.save(node.state.slam, cfg, a.o, robot_id=r)
+        if n_v >= cfg.max_vertices - 4:
+            print("vertex capacity reached; stopping")
+            break
+    checkpoints.join()
+    loop_s = time.time() - t_wall
+    print(f"{ran} ticks in {loop_s:.1f}s "
+          f"({1e3 * loop_s / max(ran, 1):.1f} ms a tick)", flush=True)
+    # the tail: peers may still be sending, and the condensed exchange
+    # needs round trips (closure list → the peer condenses → star →
+    # splice), so the comm loop runs on past the last tick
+    for k in range(60):
+        node.comm_round(0.1 * T + 0.1 * k)
+        time.sleep(0.25)
+    print(f"done in {time.time() - t_wall:.1f}s; stats={node.stats}")
+    if a.record_pings:
+        node.save_pings(a.record_pings)
+        print(f"wrote {a.record_pings}")
+    if a.stats_json:
+        st = node.state
+        g = st.slam.graph
+        vm, vo = g.vmask.cpu().numpy(), st.slam.v_owner.cpu().numpy()
+        em, lvl = g.emask.cpu().numpy(), g.e_level.cpu().numpy()
+        out = dict(
+            node.stats, robot=r, n_robots=a.nRobots,
+            backend=node.device.type,
+            transport="native" if transport.native else "python",
+            n_vertices=int(g.n_vertices), n_edges=int(g.n_edges),
+            foreign_vertices=int(np.sum(vm & (vo != r))),
+            inter_robot_accepted=int(st.out_closures.sum()),
+            condensed_star_edges_in=int(np.sum(
+                em & (lvl > 0) & (g.e_owner.cpu().numpy() != r))),
+            wall_s=round(time.time() - t_wall, 1))
+        with open(a.stats_json, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {a.stats_json}")
+    _save_outputs(a.o, node.state.slam, cfg, a, robot_id=r)
+    return 0
+
+
 def cmd_cg_mrslam(argv, device=None) -> int:
     p = argparse.ArgumentParser(prog="cg_mrslam")
     _common_flags(p)
@@ -277,23 +391,45 @@ def cmd_cg_mrslam(argv, device=None) -> int:
     p.add_argument("--modality", choices=("sim", "real", "bag"),
                    default="sim")
     p.add_argument("--commRange", type=float, default=5.0)
+    # the per-process deployment (the reference's shape: one cg_mrslam
+    # process per robot, UDP between them — cg_mrslam.cpp + graph_comm)
     p.add_argument("--idRobot", type=int, default=-1,
-                   help="-1: all robots in this process (the only "
-                        "deployment ported so far)")
+                   help="run ONE robot in this process over UDP "
+                        "(-1 = all robots in this process)")
+    p.add_argument("--baseAddr", default="127.0.0.1",
+                   help="peer base address; a trailing '.' uses the "
+                        "reference's scheme baseAddr+(id+1) "
+                        "(graph_comm.cpp:41-51)")
+    p.add_argument("--basePort", type=int, default=42001)
     p.add_argument("--pings", default=None,
                    help="recorded ping log (JSONL) for bag modality")
+    p.add_argument("--record-pings", default=None,
+                   help="write the received beacons for a later bag replay")
+    p.add_argument("--record-msgs", default=None,
+                   help="JSONL log of every sent and received datagram "
+                        "(the reference's message republishing, "
+                        "ros_handler.cpp:174-179)")
+    p.add_argument("--stats-json", default=None,
+                   help="write the node's end-of-run stats (keyframes, "
+                        "messages, bytes, capacity counters) as JSON")
+    p.add_argument("--tick-seconds", type=float, default=0.0,
+                   help="pace the main loop to wall time: tick t starts no "
+                        "earlier than start + t*X (free-running processes "
+                        "advance their simulated clocks at different "
+                        "speeds; the reference's 10 Hz loop is real time, "
+                        "cg_mrslam.cpp:206)")
+    p.add_argument("--start-at", type=float, default=0.0,
+                   help="wall-clock time (seconds since the epoch) of tick 0 "
+                        "of the main loop (0 = at once): processes given "
+                        "the same start and --tick-seconds keep their "
+                        "simulated clocks together from the first tick")
     a = p.parse_args(argv)
-
-    if a.idRobot >= 0:
-        raise NotImplementedError(
-            "cg_mrslam --idRobot r (one robot per process over UDP) is not "
-            "ported yet: it is the next item of ROADMAP.md (mr/node.py, "
-            "mr/wire.py, mr/transport.py, native/udp_comm.cpp); run all "
-            "robots in one process with --idRobot -1")
 
     if a.modality == "bag" and not a.pings:
         print("bag modality needs --pings", file=sys.stderr)
         return 2
+    if a.idRobot >= 0:
+        return _run_udp_node(a, device)
 
     from cg_mrslam_tpu_torch.mr.sim import MultiRobotSim
     from cg_mrslam_tpu_torch.sim import world as W
@@ -334,7 +470,7 @@ def main(argv=None, device=None) -> int:
               "  srslam     single-robot SLAM on the synthetic world or a "
               "CARMEN log\n"
               "  cg_mrslam  multi-robot condensed-graph SLAM, all robots "
-              "in this process")
+              "in this process or (--idRobot r) one per process over UDP")
         return 0
     cmd, rest = argv[0], argv[1:]
     if cmd == "srslam":

@@ -19,10 +19,14 @@ Messages are fixed-shape tuples of tensors. ``jax`` ``mode="drop"``
 scatters write to a trash row (``core/graph.py:put_drop``); ``lax.top_k``
 is ``first_k``; the per-peer ``lax.scan`` is a loop over peers.
 
+Also: the full-graph ``GraphMsg`` fallback (:func:`build_graph_msg`,
+:func:`receive_graph_msg`), the standalone ``VertexArray``/``RobotLaser``/
+``EdgeArray`` messages of the wire codec (``mr/wire.py``) and the
+multi-robot resume :func:`mr_state_from_g2o`.
+
 Not ported yet: the visibility gate (``detect_robot_in_range``, off by
-default — :func:`try_match_parked` raises when it is set), the ``"optimal"``
-gauge, the ``GraphMsg`` fallback, ``VertexArray``/``RobotLaser``/
-``EdgeArray`` messages and ``mr_state_from_g2o``.
+default — :func:`try_match_parked` raises when it is set) and the
+``"optimal"`` gauge (:func:`build_star` raises on it).
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from cg_mrslam_tpu_torch.matcher.search import hierarchical_search
 from cg_mrslam_tpu_torch.mr import condensed as CG
 from cg_mrslam_tpu_torch.pipeline import closure as CL
 from cg_mrslam_tpu_torch.pipeline.slam import (SlamState, _const, init_state,
-                                               newest_own)
+                                               newest_own, state_from_g2o)
 from cg_mrslam_tpu_torch.solver.chain import chain_order
 from cg_mrslam_tpu_torch.utils import se2
 
@@ -50,6 +54,8 @@ from cg_mrslam_tpu_torch.utils import se2
 COMBO_POSES = 5        # reference ships last ≤5 poses (mr_graph_slam.cpp:572)
 CLOSURE_LIST = 16      # default cap of cfg-less call sites
 STAR_EDGES = 16
+GRAPH_MSG_V = 128      # GraphMsg fallback capacities
+GRAPH_MSG_E = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +84,42 @@ class Combo(NamedTuple):
     max_range: torch.Tensor         # [] m
 
 
+class VertexArray(NamedTuple):
+    """Standalone vertex-estimate message (reference VertexArrayMessage,
+    type 1, ``msg_factory.h:141-160``)."""
+
+    robot: torch.Tensor   # [] int32
+    poses: torch.Tensor   # [C, 3]
+    idxs: torch.Tensor    # [C] int32 — sender-local indices
+    valid: torch.Tensor   # [C] bool
+
+
+class RobotLaser(NamedTuple):
+    """Standalone laser message (reference RobotLaserMessage, type 2,
+    ``msg_factory.h:162-181``: node id, readings and the laser's
+    parameters)."""
+
+    robot: torch.Tensor             # [] int32
+    node_id: torch.Tensor           # [] int32 — sender-local vertex index
+    ranges: torch.Tensor            # [B]
+    first_beam_angle: torch.Tensor  # [] rad (minangle)
+    angular_step: torch.Tensor      # [] rad (angleincrement)
+    max_range: torch.Tensor         # [] m
+    accuracy: torch.Tensor          # [] m
+
+
+class EdgeArray(NamedTuple):
+    """Standalone edge message (reference EdgeArrayMessage, type 5,
+    ``msg_factory.h:200-221``: id pairs, estimates and 6 information
+    floats)."""
+
+    robot: torch.Tensor   # [] int32
+    ids: torch.Tensor     # [E, 2] int32 — sender-local index pairs
+    z: torch.Tensor       # [E, 3]
+    info: torch.Tensor    # [E, 6]
+    valid: torch.Tensor   # [E] bool
+
+
 class ClosureList(NamedTuple):
     idxs: torch.Tensor     # [L] int32 — RECEIVER-local vertex indices
     valid: torch.Tensor    # [L] bool
@@ -91,6 +133,22 @@ class StarMsg(NamedTuple):
     info: torch.Tensor      # [K, 6]
     valid: torch.Tensor     # [K] bool
     dropped: torch.Tensor   # [] — boundary beyond capacity (sender side)
+
+
+class GraphMsg(NamedTuple):
+    """Full-graph fallback: the sender's newest own vertices and the own
+    edges among them (reference ``constructGraphMessage`` /
+    ``addInterRobotDataGraph``, ``mr_graph_slam.cpp:397-483``, ``:672-739``
+    — present in the reference but not in its send loop)."""
+
+    robot: torch.Tensor    # [] int32
+    poses: torch.Tensor    # [V, 3]
+    idxs: torch.Tensor     # [V] int32 — sender-local indices
+    vvalid: torch.Tensor   # [V] bool
+    e_ij: torch.Tensor     # [E, 2] int32 — sender-local index pairs
+    e_z: torch.Tensor      # [E, 3]
+    e_info: torch.Tensor   # [E, 6]
+    evalid: torch.Tensor   # [E] bool
 
 
 def _leaves(obj) -> list:
@@ -129,6 +187,42 @@ def init_mr_state(cfg: Config, beams: int, initial_pose, ranges,
         peer_buf=peer_buf,
         in_closures=torch.zeros((r, n), dtype=torch.bool, device=dev),
         out_closures=torch.zeros((r, n), dtype=torch.bool, device=dev),
+    )
+
+
+def mr_state_from_g2o(cfg: Config, path: str, my_id: int,
+                      device=None) -> MRState:
+    """Multi-robot resume from a ``.g2o`` checkpoint of this package (or
+    the reference's), on ``device`` (the card by default). Edge provenance
+    (owner, level) comes back from the ``CGM_EDGE_META`` lines, so
+    ``build_star``'s own-edges rule holds after a resume: received star
+    edges are not condensed again (``condensed_graph_buffer.cpp:347-366``).
+
+    ``out_closures`` (the peer vertices I accepted closures on) is
+    recovered from the graph: my own level-0 edges whose far end is
+    peer-owned. ``in_closures`` (what peers accepted on my vertices) cannot
+    be; peers resend their closure lists every round, so it refills on the
+    first exchange."""
+    slam = state_from_g2o(cfg, path, my_id, device)
+    dev = slam.graph.poses.device
+    n = cfg.max_vertices
+    r = cfg.mr.n_robots
+    w = cfg.mr.window_mr_loop_closure * 2
+    g = slam.graph
+    mine = G.own_edge_mask(g, my_id) & (g.e_level == 0)
+    vo = slam.v_owner
+    out_c = torch.zeros((r + 1, n), dtype=torch.bool, device=dev)  # r: trash
+    for endpoint in (0, 1):
+        tgt = g.e_ij[:, endpoint].long()
+        foreign = mine & (vo[tgt] != my_id) & g.vmask[tgt] & (vo[tgt] < r)
+        out_c[torch.where(foreign, vo[tgt], r).long(), tgt] = True
+    return MRState(
+        slam=slam,
+        parked=torch.zeros((n,), dtype=torch.bool, device=dev),
+        park_age=torch.zeros((n,), dtype=torch.int32, device=dev),
+        peer_buf=_stack_buffers([CL.empty(w, dev) for _ in range(r)]),
+        in_closures=torch.zeros((r, n), dtype=torch.bool, device=dev),
+        out_closures=out_c[:r].clone(),
     )
 
 
@@ -402,6 +496,84 @@ def build_star(st: MRState, peer: int, gauge_mode: str = "centroid",
         z=star.z, info=star.info,
         valid=star.valid & torch.any(valid),
         dropped=torch.clamp(n_sel - cap, min=0))
+
+
+def build_graph_msg(st: MRState) -> GraphMsg:
+    """My newest ≤``GRAPH_MSG_V`` own vertices and the own edges among them
+    (the lowest ≤``GRAPH_MSG_E`` edge slots)."""
+    slam = st.slam
+    n = slam.v_owner.shape[0]
+    dev = slam.v_owner.device
+    slots, ok = newest_own(slam, min(GRAPH_MSG_V, n))
+    s = slots.long()
+    g = slam.graph
+    in_win = put_drop(torch.zeros((n,), dtype=torch.bool, device=dev),
+                      torch.where(ok, slots, n).long(), True)
+    e = g.e_ij.long()
+    e_ok = (G.own_edge_mask(g, slam.my_id) & in_win[e[:, 0]]
+            & in_win[e[:, 1]])
+    ar = torch.arange(e_ok.shape[0], dtype=torch.int32, device=dev)
+    evals, es = first_k(torch.where(e_ok, ar, torch.full_like(ar, -1)),
+                        min(GRAPH_MSG_E, e_ok.shape[0]))
+    return GraphMsg(
+        robot=slam.my_id, poses=g.poses[s], idxs=slam.v_remote[s],
+        vvalid=ok,
+        e_ij=torch.stack([slam.v_remote[e[es, 0]], slam.v_remote[e[es, 1]]],
+                         dim=-1),
+        e_z=g.e_z[es], e_info=g.e_info[es], evalid=evals >= 0)
+
+
+def receive_graph_msg(st: MRState, msg: GraphMsg, live) -> MRState:
+    """Merge a peer's full graph (``addInterRobotDataGraph``,
+    ``mr_graph_slam.cpp:397-483``): instantiate its unknown vertices at
+    their reported poses (without scans: the fallback ships none), then
+    replace the peer's edge set wholesale (level ``1 + robot``, as a
+    condensed star).
+
+    The reference adds the vertices one at a time in message order, each
+    new one taking the next slot; here an integer ``cumsum`` over the
+    message gives every new vertex the same slot at once. An entry whose
+    index an earlier entry of the message adds is not new (the reference
+    finds the earlier one's slot) unless that earlier one fell past the
+    capacity: then it is counted again, as the reference counts it."""
+    slam = st.slam
+    n = slam.v_owner.shape[0]
+    dev = slam.v_owner.device
+    live = _live(live, dev)
+    robot = msg.robot.to(device=dev, dtype=torch.int32)
+    idxs = msg.idxs.to(torch.int32)
+    v = idxs.shape[0]
+    cand = live & msg.vvalid & (find_slots(slam, robot, idxs) == n)
+    earlier = torch.ones((v, v), dtype=torch.bool, device=dev).tril(-1)
+    same = (idxs[:, None] == idxs[None, :]) & cand[None, :] & earlier
+    repeat = same.any(1)
+    first = cand & ~repeat
+    g = slam.graph
+    tgt = g.n_vertices + torch.cumsum(first.to(torch.int32), 0,
+                                      dtype=torch.int32) - 1
+    slot = torch.where(first & (tgt < n), tgt, n).long()      # n = drop
+    # a repeat whose first entry was dropped at capacity is added again
+    again = cand & repeat & (tgt[torch.argmax(same.to(torch.uint8), 1)] >= n)
+    n_new = (first.to(torch.int32).sum() + again.to(torch.int32).sum())
+    g = dataclasses.replace(
+        g, poses=put_drop(g.poses, slot, msg.poses),
+        vmask=put_drop(g.vmask, slot, True),
+        n_vertices=(g.n_vertices + n_new).to(torch.int32))
+    slam = dataclasses.replace(
+        slam, graph=g, v_owner=put_drop(slam.v_owner, slot, robot),
+        v_remote=put_drop(slam.v_remote, slot, idxs))
+
+    vi = find_slots(slam, robot, msg.e_ij[:, 0])
+    vj = find_slots(slam, robot, msg.e_ij[:, 1])
+    ok = live & msg.evalid & (vi < n) & (vj < n)
+    g = slam.graph
+    level = 1 + robot
+    stale = g.emask & (g.e_owner == robot) & (g.e_level == level) & live
+    g = G.add_edges_masked(G.remove_edges(g, stale),
+                           torch.clamp(vi, max=n - 1),
+                           torch.clamp(vj, max=n - 1), msg.e_z, msg.e_info,
+                           ok, level=level, owner=robot)
+    return dataclasses.replace(st, slam=dataclasses.replace(slam, graph=g))
 
 
 def receive_star(st: MRState, peer: int, msg: StarMsg, live) -> MRState:

@@ -1,12 +1,15 @@
 """Native (C++) components, loaded with ``ctypes``: the bulk ``.g2o`` parser
-(``g2o_parser.cpp``, the port's own copy).
+(``g2o_parser.cpp``) and the UDP transport (``udp_comm.cpp``), the port's
+own copies.
 
-The library is built at its first use, not at import, with ``g++ -O3
--shared -fPIC -std=c++17`` into ``build/native/`` at the repository root
-(found from this package, not from the working directory), named by a hash
-of the source, so a changed source builds anew. A failed build, a failed
-load or a malformed file raises: nothing here returns a value for a caller
-to fall back on.
+A library is built at its first use, not at import, with ``g++ -O3
+-shared -fPIC -std=c++17`` (plus its own flags) into ``build/native/`` at
+the repository root (found from this package, not from the working
+directory), named by a hash of the source and the flags, so a changed
+source builds anew. The compiler writes a private temporary file that is
+renamed into place, so processes that build at once each end with a whole
+library. A failed build, a failed load or a malformed file raises: nothing
+here returns a value for a caller to fall back on.
 """
 
 from __future__ import annotations
@@ -21,15 +24,19 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "g2o_parser.cpp"
+UDP_SRC = Path(__file__).resolve().parent / "udp_comm.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _LIB = None
+_UDP = None
 
 
-def build(src: Path = SRC) -> Path:
-    """Compile ``src`` into ``build/native/`` (skipped when a library built
-    from the same bytes is there) and return the library's path. Raises
-    ``RuntimeError`` when the compiler fails."""
-    text = Path(src).read_bytes()
+def build(src: Path = SRC, flags=()) -> Path:
+    """Compile ``src`` with the extra compiler ``flags`` into
+    ``build/native/`` (skipped when a library built from the same bytes and
+    flags is there) and return the library's path. Raises ``RuntimeError``
+    when the compiler fails or cannot be run."""
+    flags = tuple(flags)
+    text = Path(src).read_bytes() + " ".join(flags).encode()
     tag = hashlib.sha1(text).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{Path(src).stem}-{tag}.so"
     if lib.exists():
@@ -37,10 +44,13 @@ def build(src: Path = SRC) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(src), "-o",
-           tmp]
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", *flags, str(src),
+           "-o", tmp]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as exc:               # no compiler on the PATH
+            raise RuntimeError(f"cannot run g++ for {src}: {exc}") from exc
         if res.returncode != 0:
             raise RuntimeError(f"g++ failed ({res.returncode}) on {src}:\n"
                                f"{res.stdout}\n{res.stderr}")
@@ -67,6 +77,31 @@ def lib() -> ctypes.CDLL:
         L.g2o_parse.restype = LL
         _LIB = L
     return _LIB
+
+
+def udp_lib() -> ctypes.CDLL:
+    """The UDP transport library (``udp_comm.cpp``, built with
+    ``-pthread``), built and loaded once per process."""
+    global _UDP
+    if _UDP is None:
+        L = ctypes.CDLL(str(build(UDP_SRC, ("-pthread",))))
+        L.udp_create.argtypes = [ctypes.c_int]
+        L.udp_create.restype = ctypes.c_int
+        L.udp_send.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
+                               ctypes.c_char_p, ctypes.c_int]
+        L.udp_send.restype = ctypes.c_int
+        L.udp_recv.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_uint32),
+                               ctypes.POINTER(ctypes.c_uint16)]
+        L.udp_recv.restype = ctypes.c_int
+        L.udp_pending.argtypes = [ctypes.c_int]
+        L.udp_pending.restype = ctypes.c_int
+        L.udp_dropped.argtypes = [ctypes.c_int]
+        L.udp_dropped.restype = ctypes.c_long
+        L.udp_close.argtypes = [ctypes.c_int]
+        L.udp_close.restype = None
+        _UDP = L
+    return _UDP
 
 
 def _check(rc: int, path: str) -> None:

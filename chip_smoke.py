@@ -74,7 +74,25 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    --carmen`` on the route's first 400 ticks written with the port's
    ``carmen.write``: keyframes and a ``.g2o``. (d) ``cg_mrslam --nRobots 2
    --ticks 300``: two ``.g2o`` files and two maps, an accepted inter-robot
-   closure, each graph holding the peer's namespaced keyframes.
+   closure, each graph holding the peer's namespaced keyframes;
+10. the per-process UDP deployment (``cg_mrslam --idRobot r``, in
+   ``chiprun_out/udp/``): robot 1 as a subprocess (``python -m
+   cg_mrslam_tpu_torch``), robot 0 through ``cli.main`` in this process once
+   robot 1's loop has started, both at the full width of phase 6 (capacity
+   512, 360 beams, the default grids, ``MRConfig``'s range and caps), cut
+   to ``UDP_TICKS`` ticks paced at ``TICK_SECONDS``, on a free base port
+   found by a probe; K1's and K2's counts set to 0 just before robot 0 and
+   read just after. Checks: both exit 0 on the native transport; messages
+   received, none undecodable; foreign vertices on both; at least one
+   accepted inter-robot closure and one spliced star edge in all; both
+   ``.g2o`` files load through the native parser with every edge's chi2
+   finite; the median cross-robot agreement (robot r's copy of a
+   constrained peer vertex against the peer's own, from the two files)
+   under 0.6 m; each robot's own-keyframe ATE below its odometry-only ATE;
+   in robot 0's process K1 launches = 3 per keyframe, K2 = 4 per global
+   search (a keyframe or a comm round), every one the fused pair, no
+   probe. Prints the wall time, the time a tick, keyframes, messages and
+   bytes sent and received, and the dropped counters of each robot.
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -126,6 +144,16 @@ ROOT = Path(__file__).resolve().parent
 CLI_DIR = ROOT / "chiprun_out" / "cli"
 # the resumed run of phase 9: saved at this tick, resumed in this process
 RESUME_TICK = 800
+UDP_DIR = ROOT / "chiprun_out" / "udp"
+# phase 10: the route cut to this many ticks, each tick paced to start no
+# earlier than start + t * TICK_SECONDS, with room above the time a tick
+# takes free running while the two robots exchange (128-150 ms on average
+# on one H100, and at a pace of 0.2 s robot 0 still averaged 201-208 ms;
+# PERF.md §5): a process that overruns its pace falls behind its peer, and
+# their simulated clocks drift apart
+UDP_TICKS = 400
+TICK_SECONDS = 0.3
+UDP_START_DELAY = 20.0
 
 
 def log(*a):
@@ -792,6 +820,199 @@ def phase_cli(cfg, traj, fov, slam, kf_t) -> None:
     log(f"cli: cg_mrslam: inter-robot closures accepted {accepted}")
 
 
+def free_base_port(n: int, start: int = 46000) -> int:
+    """A base port whose robot ports ``base + 1 .. base + n`` bind now (a
+    probe bind without ``SO_REUSEADDR``)."""
+    import socket
+
+    for base in range(start, start + 2000, 10):
+        socks = []
+        try:
+            for r in range(n):
+                sk = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                socks.append(sk)
+                sk.bind(("0.0.0.0", base + r + 1))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise RuntimeError("no free UDP ports")
+
+
+def udp_argv(robot: int, base: int, tick_seconds: float,
+             start_at: float) -> list:
+    return ["cg_mrslam", "--idRobot", str(robot), "--nRobots", "2",
+            "--modality", "sim", "--ticks", str(UDP_TICKS),
+            "--tick-seconds", str(tick_seconds), "--start-at",
+            repr(start_at), "--basePort", str(base), "--stats-json",
+            f"stats-{robot}.json", "-o", "udp"]
+
+
+def udp_keyframe_ticks(stdout: str) -> list:
+    """The tick of every ``t=<tick> keyframe`` line of a UDP node."""
+    return [int(line.split()[0][2:]) for line in stdout.splitlines()
+            if line.startswith("t=") and " keyframe " in line]
+
+
+def phase_udp(probes, tick_seconds: float = TICK_SECONDS) -> dict:
+    """Phase 10 (see the module docstring). Returns robot 0's launch counts
+    by kernel and shape."""
+    import contextlib
+    import io
+    import threading
+
+    from cg_mrslam_tpu_torch import cli
+    from cg_mrslam_tpu_torch.core.linearize import edge_chi2
+    from cg_mrslam_tpu_torch.io import g2o
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    shutil.rmtree(UDP_DIR, ignore_errors=True)
+    UDP_DIR.mkdir(parents=True)
+    base = free_base_port(2)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    t0 = time.perf_counter()
+    # both loops start at one wall-clock time, after either process's setup
+    # (robot 1's, a new process on the card, takes 6-10 s), so their
+    # simulated clocks run together from the first tick
+    start_at = time.time() + UDP_START_DELAY
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cg_mrslam_tpu_torch",
+         *udp_argv(1, base, tick_seconds, start_at)], cwd=UDP_DIR, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out1, ready = [], {}
+
+    def read():
+        for line in proc.stdout:
+            if line.startswith("robot 1/2 on"):
+                ready[1] = time.time()
+            out1.append(line)
+
+    class Stamped(io.StringIO):
+        """Robot 0's stdout, with the time its setup ended."""
+
+        def write(self, text):
+            if text.startswith("robot 0/2 on"):
+                ready[0] = time.time()
+            return super().write(text)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        kernels = (K.SCORE_VOLUME, K.SCORE_VOLUME_STRIDED) + probes
+        for k in kernels:
+            k.launches = 0
+            k.launches_by_shape.clear()
+        buf = Stamped()
+        cwd = os.getcwd()
+        os.chdir(UDP_DIR)
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc0 = cli.main(udp_argv(0, base, tick_seconds, start_at))
+        finally:
+            os.chdir(cwd)
+        k1, k2 = K.SCORE_VOLUME.launches, K.SCORE_VOLUME_STRIDED.launches
+        launches = {k: dict(k.launches_by_shape) for k in kernels[:2]}
+        probe_launches = sum(k.launches for k in probes)
+        rc1 = proc.wait(timeout=600)
+        reader.join(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    outs = [buf.getvalue(), "".join(out1)]
+    for r in range(2):
+        (UDP_DIR / f"robot-{r}.log").write_text(outs[r])
+    assert rc0 == 0 and rc1 == 0, (rc0, rc1, outs[1][-3000:])
+    # both set up before the common start
+    assert max(ready.values()) < start_at, (ready, start_at)
+    stats = [json.loads((UDP_DIR / f"stats-{r}.json").read_text())
+             for r in range(2)]
+    cfg = deployment_config(2)
+    world = W.hospital_world(40.0, 20.0, seed=0)
+    fov = 2 * np.pi * 0.75
+    graphs, own, gts = [], [], []
+    for r in range(2):
+        s = stats[r]
+        tick_line = next(line for line in outs[r].splitlines()
+                         if " ticks in " in line)
+        log(f"udp: robot {r}: {s['keyframes']} keyframes, {tick_line}; "
+            f"wall {s['wall_s']} s; sent {s['sent']} messages "
+            f"{s['bytes_sent']} B, received {s['received']} messages "
+            f"{s['bytes_received']} B; dropped: closure list "
+            f"{s['closure_list_dropped']}, star {s['star_dropped']}, "
+            f"capacity {s['keyframes_capacity_stopped']}; decode errors "
+            f"{s['decode_errors']}; vertices {s['n_vertices']} (foreign "
+            f"{s['foreign_vertices']}), inter-robot accepted "
+            f"{s['inter_robot_accepted']}, star edges in "
+            f"{s['condensed_star_edges_in']}")
+        assert s["transport"] == "native" and s["backend"] == "cuda", s
+        assert s["received"] > 0 and s["decode_errors"] == 0, s
+        assert s["foreign_vertices"] > 0, s
+        lg = g2o.load(str(UDP_DIR / f"robot-{r}-udp.g2o"), native=True)
+        g = lg.graph
+        c2 = edge_chi2(g)[g.emask]
+        assert bool(torch.isfinite(c2).all()), r
+        graphs.append(lg)
+        ids = lg.ids
+        mine = np.flatnonzero((ids >= 0) & (ids // cfg.slam.base_id == r))
+        mine = mine[np.argsort(ids[mine])]
+        own.append(g.poses.cpu().numpy()[mine])
+        ticks = [0] + udp_keyframe_ticks(outs[r])
+        assert len(ticks) == len(mine) == s["keyframes"] + 1, \
+            (r, len(ticks), len(mine))
+        tr = W.simulate_robot(world, W.corridor_waypoints(40.0, 20.0, r, 2),
+                              seed=7 * r, beams=360, fov=fov,
+                              max_range=10.0, odom_noise=(0.01, 0.004),
+                              device="cuda")
+        gts.append((tr, ticks))
+    assert sum(s["inter_robot_accepted"] for s in stats) >= 1, stats
+    assert sum(s["condensed_star_edges_in"] for s in stats) >= 1, stats
+    for r in range(2):
+        lg, peer = graphs[r], graphs[1 - r]
+        g = lg.graph
+        em = g.emask.cpu().numpy()
+        deg = np.bincount(g.e_ij.cpu().numpy()[em].reshape(-1),
+                          minlength=len(lg.ids))
+        pos = dict(zip(peer.ids.tolist(), peer.graph.poses.cpu().numpy()))
+        hp = g.poses.cpu().numpy()
+        errs = np.asarray([
+            np.hypot(*(hp[k, :2] - pos[i][:2])) for k, i in
+            enumerate(lg.ids.tolist()) if i >= 0 and deg[k] > 0
+            and i // cfg.slam.base_id == 1 - r and i in pos])
+        tr, ticks = gts[r]
+        a_slam = ate(own[r], tr.gt[ticks])
+        a_odom = ate(tr.odom[ticks], tr.gt[ticks])
+        log(f"udp: robot {r}: ATE {a_slam:.4f} m vs odometry ATE "
+            f"{a_odom:.4f} m; cross-robot agreement on {len(errs)} "
+            f"vertices: median "
+            f"{np.median(errs) if len(errs) else float('nan'):.4f} m, max "
+            f"{errs.max() if len(errs) else float('nan'):.4f} m, "
+            f"{int((errs > 1.0).sum())} over 1 m; edge chi2 "
+            f"sum {float(edge_chi2(g)[g.emask].sum()):.4f}")
+        assert a_slam < a_odom, (r, a_slam, a_odom)
+        assert len(errs) > 0 and np.median(errs) < MAX_AGREEMENT_M, (r, errs)
+    n_kf = stats[0]["keyframes"]
+    rounds = int(outs[0].split(" ticks in ")[0].rsplit("\n", 1)[-1]) + 60
+    pairs = launches[K.SCORE_VOLUME_STRIDED]
+    log(f"udp: robot 0's process: K1 launches {k1} ({n_kf} keyframes), K2 "
+        f"launches {k2} ({n_kf} keyframes + {rounds} comm rounds), probes "
+        f"{probe_launches}; setup done {start_at - ready[1]:.2f} s "
+        f"(robot 1) and {start_at - ready[0]:.2f} s (robot 0) before the "
+        f"common start; phase wall {wall:.1f} s at {tick_seconds} s a tick")
+    assert k1 == 3 * n_kf, (k1, n_kf)
+    assert k2 > 0 and k2 == 4 * (n_kf + rounds), (k2, n_kf, rounds)
+    assert all(k[1] == 2 and len(k) == 7 for k in pairs), pairs
+    assert probe_launches == 0, "a probe ran on the path"
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1026,6 +1247,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_cli(cfg, traj, fov, slam, kf_t)
     log(f"cli: phase 9 in {time.perf_counter() - t0:.1f} s")
+
+    # --- 10. the per-process UDP deployment ---
+    t0 = time.perf_counter()
+    udp = phase_udp(probes)
+    for rec in records:
+        kernel = (K.SCORE_VOLUME_STRIDED if rec.get("pair")
+                  else K.SCORE_VOLUME)
+        key = tuple(rec["shape"]) + ((rec["stride"],) * 2 if rec.get("pair")
+                                     else ())
+        rec["launches_udp_robot0"] = udp[kernel].get(key, 0)
+    log(f"udp: phase 10 in {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": records + probe_records}), flush=True)

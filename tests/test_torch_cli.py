@@ -15,9 +15,9 @@ Bars (the whole-replay bars of ``tests/test_torch_pipeline.py``, and why):
 * the maps agree on ≥ 99% of their cells (the poses differ by float32
   noise, and boundary cells of a ray can move with them).
 
-Also: ``cg_mrslam --idRobot 0`` (the per-process UDP deployment, not
-ported) raises ``NotImplementedError``; the bag modality without a ping log
-is refused.
+Also: the bag modality without a ping log is refused (returns 2), in one
+process and in the per-process UDP deployment (``--idRobot 0``), as the
+reference refuses it; ``--help`` and an unknown command.
 """
 
 import os
@@ -94,8 +94,9 @@ def test_srslam_writes_the_references_outputs(runs):
 
 def test_idrobot_raises(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["cg_mrslam", "--idRobot", "0"] + SMALL, device="cpu")
+    assert tcli.main(["cg_mrslam", "--idRobot", "0", "--modality", "bag"]
+                     + SMALL, device="cpu") == 2
+    assert os.listdir(tmp_path) == []
     assert tcli.main(["--help"]) == 0
     assert tcli.main(["nonsense"]) == 2
     assert tcli.main(["cg_mrslam", "--modality", "bag"], device="cpu") == 2

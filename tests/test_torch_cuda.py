@@ -6,8 +6,10 @@ their launch counts and input checks, the solver's masked loops and
 condense on the card against the CPU, a keyframe step with no host
 synchronization, the solver's float sums repeated bit for bit (summed with
 ``index_add_``, these repeats differed), and the occupancy map on the card
-against the CPU. Every test carries the ``cuda`` marker and skips where
-there is no NVIDIA GPU.
+against the CPU, and two robot nodes on the card (K1 three times a
+keyframe, K2's pair per global search, no probe) whose messages decode onto
+the card as on the CPU. Every test carries the ``cuda`` marker and skips
+where there is no NVIDIA GPU.
 
 This file imports neither JAX nor ``cg_mrslam_tpu``, so it also runs on a
 machine without them (``tests/conftest.py`` imports JAX, hence
@@ -622,3 +624,157 @@ def _to_cpu(obj):
     return dataclasses.replace(obj, **{
         f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
         if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+class _Loopback:
+    """In-memory datagrams between ``n`` robots (the nodes' transport
+    interface: ``send``, ``drain``, ``close``)."""
+
+    def __init__(self, n):
+        self.queues = [[] for _ in range(n)]
+
+    def endpoint(self, robot):
+        net = self
+
+        class End:
+            def send(self, peer, data):
+                net.queues[peer].append(bytes(data))
+                return True
+
+            def drain(self, limit=256):
+                q = net.queues[robot]
+                out, q[:] = q[:limit], q[limit:]
+                return out
+
+            def close(self):
+                pass
+
+        return End()
+
+
+@pytest.fixture(scope="module")
+def node_run():
+    """Two robot nodes on the card over a loopback network, 120 ticks of
+    the small two-robot world (capacity 96). Returns the nodes, the
+    kernels' launch counts of the run, K2's by shape and the number of
+    comm rounds the two nodes ran together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from cg_mrslam_tpu_torch.config import (Config, MatcherConfig, MRConfig,
+                                            SlamConfig)
+    from cg_mrslam_tpu_torch.mr.node import RobotNode
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    cfg = Config(
+        slam=SlamConfig(min_inliers=4, window_loop_closure=8),
+        mr=MRConfig(n_robots=2, min_inliers_mr=4, sim_comm_range=6.0,
+                    max_score_mr=0.2),
+        close_matcher=MatcherConfig(extent=16.0, resolution=0.05,
+                                    kernel_radius=0.2),
+        lc_matcher=MatcherConfig(extent=24.0, resolution=0.1,
+                                 kernel_radius=0.5),
+        max_vertices=96, max_edges=512)
+    fov = 1.5 * math.pi
+    world = W.hospital_world(16.0, 10.0, seed=2)
+    trajs = [W.simulate_robot(world, W.corridor_waypoints(16.0, 10.0, r, 2),
+                              seed=11 + 7 * r, beams=120, fov=fov,
+                              max_range=8.0, odom_noise=(0.02, 0.008),
+                              device="cuda") for r in range(2)]
+    net = _Loopback(2)
+    nodes = [RobotNode(cfg, r, 120, trajs[r].gt[0], trajs[r].ranges[0], fov,
+                       8.0, net.endpoint(r), modality="real",
+                       gt_pose=trajs[r].gt[0]) for r in range(2)]
+    counters = (K.SCORE_VOLUME, K.SCORE_VOLUME_STRIDED, K.PROBE_NO_GATHER,
+                K.PROBE_CONST_CELLS)
+    before = [k.launches for k in counters]
+    pair_before = dict(K.SCORE_VOLUME_STRIDED.launches_by_shape)
+    rounds = 0
+    for t in range(1, 120):
+        kfs = [n.observe(trajs[r].rel_odom[t - 1], trajs[r].ranges[t],
+                         gt_pose=trajs[r].gt[t])
+               for r, n in enumerate(nodes)]
+        if any(kfs):
+            for dt in (0.0, 0.05):
+                for n in nodes:
+                    n.comm_round(0.1 * t + dt)
+                    rounds += 1
+    torch.cuda.synchronize()
+    launches = [k.launches - b for k, b in zip(counters, before)]
+    pairs = {k: v - pair_before.get(k, 0) for k, v in
+             K.SCORE_VOLUME_STRIDED.launches_by_shape.items()
+             if v != pair_before.get(k, 0)}
+    return nodes, launches, pairs, rounds
+
+
+def test_robot_node_on_the_card_launches_its_kernels(node_run):
+    """A node's keyframe launches K1 three times; every global search
+    (one per keyframe and one per comm round) launches K2's fused pair
+    once per level (4); no probe runs; the nodes exchanged and merged."""
+    nodes, (k1, k2, p1, p2), pairs, rounds = node_run
+    kf = sum(n.stats["keyframes"] for n in nodes)
+    assert kf > 10 and rounds > 10
+    assert k1 == 3 * kf, (k1, kf)
+    assert k2 == 4 * (kf + rounds), (k2, kf, rounds)
+    assert all(k[1] == 2 and len(k) == 7 for k in pairs), pairs
+    assert p1 == 0 and p2 == 0
+    for r, n in enumerate(nodes):
+        assert n.device.type == "cuda"
+        assert n.stats["received"] > 0 and n.stats["decode_errors"] == 0
+        st = n.state.slam
+        assert bool((st.graph.vmask & (st.v_owner == 1 - r)).any())
+        assert all(math.isfinite(i.chi2) for i in n.infos)
+
+
+def test_wire_decode_on_the_card_equals_cpu(node_run):
+    """Messages built from the card's state encode to the bytes of the same
+    state on the CPU, and decode onto the card to the CPU's values."""
+    from cg_mrslam_tpu_torch.mr import mrslam as MR
+    from cg_mrslam_tpu_torch.mr import wire
+
+    st = node_run[0][0].state
+    peer = 1
+    msgs = {"combo": MR.build_combo(st), "graph": MR.build_graph_msg(st),
+            "list": MR.build_closure_list(st, peer, cap=16)}
+    if bool(st.in_closures[peer].any()):
+        msgs["star"] = MR.build_star(st, peer, cap=16)
+    for name, msg in msgs.items():
+        buf = wire.encode(msg, robot=0)
+        cpu_msg = type(msg)(*(v.cpu() if torch.is_tensor(v) else v
+                              for v in msg))
+        assert wire.encode(cpu_msg, robot=0) == buf, name
+        _, on_card = wire.decode(buf, device="cuda")
+        _, on_cpu = wire.decode(buf, device="cpu")
+        for a, b in zip(on_card, on_cpu):
+            assert a.device.type == "cuda" and b.device.type == "cpu"
+            assert torch.equal(a.cpu(), b), name
+
+
+def test_two_processes_build_the_kernel_at_once(dev, tmp_path):
+    """Two processes that build ``score_volume.cu`` into the same empty
+    directory at once (as two robot processes on one card can at their
+    first launch) each end with a library that loads and launches."""
+    import os
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import sys, torch; from pathlib import Path; "
+            "from cg_mrslam_tpu_torch.ops import correlate as K; "
+            "K.BUILD_DIR = Path(sys.argv[1]); K.load_library(); "
+            "g = torch.rand(1, 64, 64, device='cuda'); "
+            "i = torch.zeros(1, 1, 8, dtype=torch.int32, device='cuda'); "
+            "v = K.SCORE_VOLUME(g, torch.zeros(1, dtype=torch.int32, "
+            "device='cuda'), i + 20, i + 30, torch.ones(1, 1, 8, "
+            "dtype=torch.bool, device='cuda'), torch.full((1, 1), 8.0, "
+            "device='cuda'), 2, 2); torch.cuda.synchronize(); "
+            "print('ok', float(v.sum()) > 0)")
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    for p in procs:
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0 and out.strip() == "ok True", err[-2000:]
+    assert len(list(tmp_path.glob("libscore_volume-*.so"))) == 1
+    assert not list(tmp_path.glob("tmp*")), list(tmp_path.iterdir())

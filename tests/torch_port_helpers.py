@@ -149,3 +149,65 @@ def compare_maps(ref_pgm, port_pgm, share=0.99):
     ia = np.frombuffer(ha[1], np.uint8)
     ib = np.frombuffer(hb[1], np.uint8)
     assert (ia == ib).mean() >= share, (ia == ib).mean()
+
+
+# --- the per-process deployment (tests/test_torch_{transport,node,...}) ---
+
+
+def free_base_port(n_robots: int, slot: int = 0) -> int:
+    """A base port whose robot ports ``base + 1 .. base + n_robots`` are
+    free now. Each pytest-xdist worker searches its own range (a UDP port
+    bound with ``SO_REUSEADDR`` by two sockets splits its datagrams between
+    them without an error, so two test files must never share one), and
+    every candidate is probed with a bind that does not set it."""
+    import os
+    import socket
+
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    index = int(worker[2:]) if worker[2:].isdigit() else 0
+    start = 43000 + 1000 * index + 50 * (slot % 20)
+    for base in range(start, start + 1000, 10):
+        socks = []
+        try:
+            for r in range(n_robots):
+                s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                socks.append(s)
+                s.bind(("0.0.0.0", base + r + 1))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no free UDP ports from {start}")
+
+
+class Loopback:
+    """An in-memory datagram network for ``n`` robots: ``endpoint(r)``
+    has the transport interface the nodes use (``send``, ``drain``,
+    ``close``). Delivery is immediate and in order, so two runs that send
+    the same datagrams in the same order receive the same."""
+
+    def __init__(self, n: int):
+        import collections
+
+        self.queues = [collections.deque() for _ in range(n)]
+
+    def endpoint(self, robot: int) -> "LoopbackEndpoint":
+        return LoopbackEndpoint(self, robot)
+
+
+class LoopbackEndpoint:
+    def __init__(self, net: Loopback, robot: int):
+        self.net, self.robot = net, robot
+
+    def send(self, peer: int, data: bytes) -> bool:
+        self.net.queues[peer].append(bytes(data))
+        return True
+
+    def drain(self, limit: int = 256) -> list:
+        q = self.net.queues[self.robot]
+        return [q.popleft() for _ in range(min(limit, len(q)))]
+
+    def close(self) -> None:
+        pass
