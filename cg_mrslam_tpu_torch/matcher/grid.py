@@ -22,8 +22,18 @@ import torch
 def world_to_cell(points: torch.Tensor, center: torch.Tensor, cells: int,
                   resolution: float) -> torch.Tensor:
     """World ``[..., 2]`` → integer cell indices ``[..., 2]`` as (ix, iy)."""
-    rel = (points - center) / resolution + cells / 2.0
+    rel = over(points - center, resolution) + cells / 2.0
     return torch.floor(rel).to(torch.int32)
+
+
+def over(x: torch.Tensor, resolution: float) -> torch.Tensor:
+    """``x / resolution`` as the CPU divides, on either device, so that a
+    point lands in the same cell on the card as on the CPU: the divisor is
+    a device tensor. (PyTorch's CUDA division by a Python number multiplies
+    by its reciprocal: on one H100 it differed from the CPU's quotient for
+    13% of random values and moved all 287 edge points of the card test
+    into the neighbouring cell; ``tools/card_cpu_cells.py``.)"""
+    return x / torch.full((), resolution, dtype=x.dtype, device=x.device)
 
 
 def _kernel_patch(kernel_radius: float, resolution: float, device=None):
@@ -34,6 +44,26 @@ def _kernel_patch(kernel_radius: float, resolution: float, device=None):
     off = torch.arange(k, dtype=torch.float32, device=device) - r_cells
     d = torch.sqrt(off[:, None] ** 2 + off[None, :] ** 2) * resolution
     return torch.clamp(d, max=kernel_radius), r_cells
+
+
+def subsample(points: torch.Tensor, valid: torch.Tensor,
+              center: torch.Tensor, *, cells: int,
+              resolution: float) -> torch.Tensor:
+    """Keep ≤1 point per grid cell: a reduced valid mask (reference
+    ``CharGrid::subsample``). Of the points that share a cell the first in
+    input order is kept (a stable sort by cell id, as ``jnp.argsort``);
+    cell ids are not clipped to the grid, and a negative id is dropped with
+    the invalid points, as in the reference."""
+    cell = world_to_cell(points, center, cells, resolution)
+    cid = torch.where(valid, cell[:, 1] * cells + cell[:, 0],
+                      torch.full_like(cell[:, 0], -1))
+    order = torch.argsort(cid, stable=True)
+    sorted_cid = cid[order]
+    first = sorted_cid != torch.roll(sorted_cid, 1)
+    first[0] = True
+    keep = torch.zeros_like(valid)
+    keep[order] = first & (sorted_cid >= 0)
+    return keep
 
 
 def build_grids(points: torch.Tensor, valid: torch.Tensor,

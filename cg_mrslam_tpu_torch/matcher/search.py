@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from cg_mrslam_tpu_torch.core.graph import first_k
+from cg_mrslam_tpu_torch.matcher.grid import world_to_cell
 from cg_mrslam_tpu_torch.ops.correlate import (
     SCORE_VOLUME,
     SCORE_VOLUME_STRIDED,
@@ -294,3 +295,37 @@ def hierarchical_search(grid: torch.Tensor, center: torch.Tensor,
 
     order = torch.argsort(scores, stable=True)
     return SearchResult(poses=poses[order], scores=scores[order])
+
+
+def unmatched_points(grid: torch.Tensor, center: torch.Tensor,
+                     resolution: float, points: torch.Tensor,
+                     valid: torch.Tensor, *,
+                     dist_threshold: float = 0.3) -> torch.Tensor:
+    """Mask of points NOT explained by the grid (reference
+    ``searchNonMatchedPoints``): the grid distance at the point's cell
+    exceeds ``dist_threshold``. Off-grid points are not counted. ``points``
+    are in the grid's world frame."""
+    cells = grid.shape[0]
+    cell = world_to_cell(points, center, cells, resolution)
+    inb = torch.all((cell >= 0) & (cell < cells), dim=-1)
+    c = torch.clamp(cell, 0, cells - 1).long()
+    v = grid[c[:, 1], c[:, 0]]
+    return valid & inb & (v > dist_threshold)
+
+
+def box_mean(grid: torch.Tensor, center: torch.Tensor, resolution: float,
+             box_center: torch.Tensor, *,
+             box_half: float = 0.3) -> torch.Tensor:
+    """Mean grid value over the cells whose centres lie in a world-frame
+    box (reference ``CharGrid::countPoints``). The cell centres are built
+    in float32 in the reference's order, so the box edge (``|w − c| <=
+    box_half``) takes the same cells; the masked sum runs over the whole
+    grid, as the reference's does, and the count stays on the device."""
+    cells = grid.shape[0]
+    ax = (torch.arange(cells, dtype=torch.float32, device=grid.device)
+          + 0.5 - cells / 2.0) * resolution
+    mx = torch.abs(center[0] + ax - box_center[0]) <= box_half     # [C]
+    my = torch.abs(center[1] + ax - box_center[1]) <= box_half
+    m = my[:, None] & mx[None, :]                                  # row=y
+    n = torch.clamp(torch.sum(m), min=1)
+    return torch.sum(torch.where(m, grid, torch.zeros_like(grid))) / n

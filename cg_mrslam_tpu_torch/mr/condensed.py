@@ -10,7 +10,10 @@ frame. The settle and the marginals go through the capacity-banded solver
 (``solver/gauss_newton.py``): above ``DENSE_MAX`` the chain or PCG band,
 under the (owner, keyframe) slot permutation.
 
-``select_gauge_optimal`` is not ported yet; the default centroid gauge is.
+Two gauge policies: the centroid (default) and the uncertainty-minimizing
+:func:`select_gauge_optimal`, which condenses once per valid boundary
+vertex in a host loop (the reference ``vmap``s the K condenses; invalid
+slots can never win, so skipping them gives the same gauge).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from cg_mrslam_tpu_torch.core.graph import (PoseGraph, add_edges_masked,
                                             fill, pack_info, remove_edges,
-                                            row)
+                                            row, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
 from cg_mrslam_tpu_torch.solver import gauss_newton as gn
 from cg_mrslam_tpu_torch.utils import se2
@@ -49,6 +52,25 @@ def select_gauge_centroid(g: PoseGraph, boundary: torch.Tensor,
     d = torch.linalg.norm(pos - centroid, dim=-1)
     d = torch.where(valid, d, torch.full_like(d, 1e9))
     return row(boundary, torch.argmin(d))
+
+
+def select_gauge_optimal(g: PoseGraph, boundary: torch.Tensor,
+                         valid: torch.Tensor, edge_mask: torch.Tensor,
+                         order: torch.Tensor | None = None) -> torch.Tensor:
+    """Uncertainty-minimizing gauge (reference ``selectOptimalGauge``):
+    condense once per candidate gauge and pick the one whose star has the
+    smallest total uncertainty Σₑ det(Ωₑ)⁻¹ (``computeOverallUncertainty``);
+    the first minimum wins. The valid slots are read on the host (one
+    read) and condensed one at a time; invalid slots score +inf."""
+    u = torch.full(boundary.shape, float("inf"), dtype=g.poses.dtype,
+                   device=g.poses.device)
+    for k in torch.nonzero(valid.cpu()).reshape(-1).tolist():
+        star = condense(g, boundary, valid, boundary[k], edge_mask, order)
+        det = torch.linalg.det(unpack_info(star.info))
+        inv = 1.0 / torch.clamp(det, min=1e-30)
+        u[k] = torch.sum(torch.where(star.valid, inv,
+                                     torch.zeros_like(inv)))
+    return row(boundary, torch.argmin(u))
 
 
 def condense(g: PoseGraph, boundary: torch.Tensor, valid: torch.Tensor,

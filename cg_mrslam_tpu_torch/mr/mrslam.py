@@ -24,9 +24,10 @@ Also: the full-graph ``GraphMsg`` fallback (:func:`build_graph_msg`,
 ``EdgeArray`` messages of the wire codec (``mr/wire.py``) and the
 multi-robot resume :func:`mr_state_from_g2o`.
 
-Not ported yet: the visibility gate (``detect_robot_in_range``, off by
-default — :func:`try_match_parked` raises when it is set) and the
-``"optimal"`` gauge (:func:`build_star` raises on it).
+Two options of the reference, off by default as there: the visibility
+gate of :func:`try_match_parked` (``MRConfig.detect_robot_in_range``) and
+the uncertainty-minimizing gauge of :func:`build_star`
+(``gauge_mode="optimal"``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from cg_mrslam_tpu_torch.config import Config
 from cg_mrslam_tpu_torch.core import graph as G
 from cg_mrslam_tpu_torch.core import scan as S
 from cg_mrslam_tpu_torch.core.graph import first_k, put_drop, row
+from cg_mrslam_tpu_torch.matcher import matching
 from cg_mrslam_tpu_torch.matcher.grid import build_grid
 from cg_mrslam_tpu_torch.matcher.search import hierarchical_search
 from cg_mrslam_tpu_torch.mr import condensed as CG
@@ -341,10 +343,9 @@ def try_match_parked(st: MRState, cfg: Config) -> MRState:
     result is masked). Unmatched vertices age out after
     ``inter_robot_gap`` rounds. The search trusts the transmitted pose to
     ±(global_dx, global_dy) and ±global_th_span, scores on known map
-    cells with a coverage floor, and min-pools its coarse levels."""
-    if cfg.mr.detect_robot_in_range:
-        raise NotImplementedError(
-            "the visibility gate (detect_robot_in_range) is not ported yet")
+    cells with a coverage floor, and min-pools its coarse levels. With
+    ``detect_robot_in_range`` a match also has to pass the visibility gate
+    (:func:`matching.verify_match`), on the device, with no host read."""
     slam = st.slam
     n = slam.v_owner.shape[0]
     dev = slam.v_owner.device
@@ -353,7 +354,7 @@ def try_match_parked(st: MRState, cfg: Config) -> MRState:
     cand = torch.argmax(freshness)
     has = row(st.parked, cand)
 
-    grid, center, my_ref, _, _ = _local_map_grid(
+    grid, center, my_ref, map_world, map_valid = _local_map_grid(
         st, cfg, 2 * cfg.mr.global_match_window + 1)
     cur_pts, cur_valid = S.points_from_ranges(
         slam.scans, row(slam.scans.ranges, cand))
@@ -371,6 +372,16 @@ def try_match_parked(st: MRState, cfg: Config) -> MRState:
         min_known=cfg.mr.global_min_known, pool_coarse=True)
     pose, score = res.poses[0], res.scores[0]
     ok = has & (score < cfg.mr.max_score_mr)
+
+    if cfg.mr.detect_robot_in_range:
+        # visibility gate (mr_graph_slam.cpp:218-226 / :291-299): accept the
+        # match only if my scan sees the peer's body — points unexplained
+        # by its scan — at the claimed position (its scan is the "map")
+        peer_world = se2.apply(pose, cur_pts)
+        detected = matching.verify_match(
+            peer_world, cur_valid, map_world, map_valid, pose[:2],
+            cfg=cfg.lc_matcher, threshold=cfg.windows.verify_threshold)
+        ok = ok & detected
 
     # matched: move the foreign vertex to the matched pose and buffer the
     # closure hypothesis my_ref -> cand (info diag(100,100,1000))
@@ -471,11 +482,9 @@ def build_star(st: MRState, peer: int, gauge_mode: str = "centroid",
                cap: int = STAR_EDGES) -> StarMsg:
     """Condense my own-edge graph onto the boundary ``peer`` requested
     (``computeCondensedGraph``, own edges only), under the (owner,
-    keyframe) chain permutation. Only the ``"centroid"`` gauge is
-    ported."""
-    if gauge_mode != "centroid":
-        raise NotImplementedError(f"gauge mode {gauge_mode!r} is not "
-                                  "ported yet")
+    keyframe) chain permutation. ``gauge_mode``: ``"centroid"`` (default,
+    ``selectGaugeCentroid``) or ``"optimal"`` (``selectOptimalGauge``: one
+    condense per valid boundary vertex, so K times the cost)."""
     slam = st.slam
     sel = st.in_closures[peer]
     cap = min(cap, sel.shape[0])
@@ -488,7 +497,10 @@ def build_star(st: MRState, peer: int, gauge_mode: str = "centroid",
     g = slam.graph
     own = G.own_edge_mask(g, slam.my_id)
     order = chain_order(slam.v_owner, slam.v_remote, g.vmask)
-    gauge = CG.select_gauge_centroid(g, slots, valid)
+    if gauge_mode == "optimal":
+        gauge = CG.select_gauge_optimal(g, slots, valid, own, order)
+    else:
+        gauge = CG.select_gauge_centroid(g, slots, valid)
     star = CG.condense(g, slots, valid, gauge, own, order)
     return StarMsg(
         gauge=row(slam.v_remote, gauge),

@@ -44,6 +44,9 @@ from pathlib import Path
 
 import torch
 
+from cg_mrslam_tpu_torch.matcher.grid import over
+from cg_mrslam_tpu_torch.utils.se2 import cos_sin
+
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "score_volume.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # staged cells of one (b, θ) live in 48 KB of default shared memory
@@ -63,16 +66,17 @@ def volume_cells(centers: torch.Tensor, resolution: float, cells: int,
     if points.dim() == 2:
         points = points[None]
     ang = bases[:, 2:3] + thetas[None, :]                    # [B,T]
-    c = torch.cos(ang)[..., None]                            # [B,T,1]
-    s = torch.sin(ang)[..., None]
+    c, s = cos_sin(ang)
+    c, s = c[..., None], s[..., None]                        # [B,T,1]
     px = points[:, None, :, 0]                               # [B|1,1,P]
     py = points[:, None, :, 1]
     wx = c * px - s * py + bases[:, 0, None, None]
     wy = s * px + c * py + bases[:, 1, None, None]
     half = cells / 2.0
-    ix = torch.floor((wx - centers[:, 0, None, None]) / resolution
+    # the card's cells equal the CPU's (see matcher.grid.over)
+    ix = torch.floor(over(wx - centers[:, 0, None, None], resolution)
                      + half).to(torch.int32)
-    iy = torch.floor((wy - centers[:, 1, None, None]) / resolution
+    iy = torch.floor(over(wy - centers[:, 1, None, None], resolution)
                      + half).to(torch.int32)
     # consecutive-duplicate-cell dedup: compared with the previous point
     # whether or not that one is valid; point 0 is never a duplicate

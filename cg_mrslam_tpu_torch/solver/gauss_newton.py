@@ -10,6 +10,7 @@ the band from the graph's capacity: dense up to ``DENSE_MAX`` (or
 ``DENSE_MAX_CHOL`` with ``chol``), then chain+Woodbury
 (``solver/chain.py``) where the graph is chainable and matrix-free PCG
 (``solver/pcg.py``) where it is not; PCG above ``PCG_MIN``.
+:func:`optimize_lm` (Levenberg–Marquardt) damps the dense solve with λ.
 
 Assembly keeps the reference's one-hot selection products: a scatter-add
 on the card would add the per-edge blocks with atomics, in an order that
@@ -36,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from cg_mrslam_tpu_torch.core.graph import PoseGraph, unpack_info
-from cg_mrslam_tpu_torch.core.linearize import linearize
+from cg_mrslam_tpu_torch.core.linearize import chi2, linearize
 from cg_mrslam_tpu_torch.solver import chain as CH
 from cg_mrslam_tpu_torch.solver.pcg import (marginal_covariance_pcg,
                                             optimize_pcg)
@@ -127,12 +128,19 @@ def _cholesky(H: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, L, torch.full_like(L, float("nan")))
 
 
-def solve_normal_equations(eq: NormalEq, chol: bool = False
-                           ) -> torch.Tensor:
-    """dx = -H⁻¹ b. ``chol`` factorizes (the batch-1 live path); otherwise
-    the explicit SPD inverse (``solver.spd``) preconditions and warm-starts
-    a dense CG polish (the reference's default)."""
+def solve_normal_equations(eq: NormalEq,
+                           damping: torch.Tensor | float = 0.0,
+                           chol: bool = False) -> torch.Tensor:
+    """dx = -(H + λ·diag(free))⁻¹ b; λ = 0 is pure Gauss–Newton. ``chol``
+    factorizes (the batch-1 live path); otherwise the explicit SPD inverse
+    (``solver.spd``) preconditions and warm-starts a dense CG polish (the
+    reference's default). A damping given as the Python number 0 adds
+    nothing (the reference adds exact zeros): the live path's operations
+    and bits stay as they were."""
     H, b = _gauge_fix(eq.H, eq.b, eq.free3)
+    if isinstance(damping, torch.Tensor) or damping != 0.0:
+        lam = torch.as_tensor(damping, dtype=H.dtype, device=H.device)
+        H = H + torch.diag(lam * eq.free3)
     if chol:
         dx = -torch.cholesky_solve(b[:, None], _cholesky(H))[:, 0]
     else:
@@ -141,10 +149,12 @@ def solve_normal_equations(eq: NormalEq, chol: bool = False
 
 
 def gn_step(g: PoseGraph, edge_mask: torch.Tensor | None = None,
+            damping: torch.Tensor | float = 0.0,
             chol: bool = False) -> PoseGraph:
-    """One linearize → solve → oplus update (g2o GN iteration)."""
+    """One linearize → solve → oplus update (g2o GN iteration); ``damping``
+    is the Levenberg–Marquardt λ."""
     dx = solve_normal_equations(build_normal_equations(g, edge_mask),
-                                chol=chol)
+                                damping, chol=chol)
     return dataclasses.replace(g, poses=se2.oplus(g.poses, dx.reshape(-1, 3)))
 
 
@@ -252,6 +262,47 @@ def marginal_covariance_auto(g: PoseGraph, query: torch.Tensor,
     BAND_CALLS["marginal_covariance_auto", "pcg"] += 1
     return marginal_covariance_pcg(g, query, edge_mask,
                                    cg_iters=pcg_cg_iters, order=order)
+
+
+class LMState(NamedTuple):
+    graph: PoseGraph
+    lam: torch.Tensor    # [] damping λ
+    chi2: torch.Tensor   # [] chi2 of ``graph``
+    accept: torch.Tensor  # [] bool — the last trial step was taken
+
+
+def lm_step(st: LMState, edge_mask: torch.Tensor) -> LMState:
+    """One Levenberg–Marquardt iteration: a damped GN trial step (the SPD
+    inverse solve, ``chol=False``), taken if it lowers chi2; λ halves on
+    acceptance and quadruples on rejection. Everything stays on the
+    device (no host read)."""
+    trial = gn_step(st.graph, edge_mask, damping=st.lam)
+    c_new = chi2(trial, edge_mask)
+    accept = c_new < st.chi2
+    g = dataclasses.replace(st.graph, poses=torch.where(
+        accept, trial.poses, st.graph.poses))
+    return LMState(graph=g,
+                   lam=torch.where(accept, st.lam * 0.5, st.lam * 4.0),
+                   chi2=torch.where(accept, c_new, st.chi2), accept=accept)
+
+
+def optimize_lm(g: PoseGraph, iterations: int = 10,
+                edge_mask: torch.Tensor | None = None,
+                init_lambda: float = 1e-4) -> PoseGraph:
+    """Levenberg–Marquardt with a multiplicative λ schedule: ``iterations``
+    :func:`lm_step` calls (a static loop). A robustness option for poorly
+    initialized graphs; not on the live path. A trial changes only the
+    poses, so a rejected one keeps the graph as it was."""
+    mask = g.emask if edge_mask is None else edge_mask
+    st = LMState(graph=g, lam=torch.full((), init_lambda,
+                                         dtype=g.poses.dtype,
+                                         device=g.poses.device),
+                 chi2=chi2(g, mask),
+                 accept=torch.zeros((), dtype=torch.bool,
+                                    device=g.poses.device))
+    for _ in range(iterations):
+        st = lm_step(st, mask)
+    return st.graph
 
 
 def marginal_covariance(g: PoseGraph, query: torch.Tensor,

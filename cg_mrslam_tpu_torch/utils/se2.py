@@ -19,6 +19,17 @@ def normalize_angle(theta: torch.Tensor) -> torch.Tensor:
     return theta - TWO_PI * torch.round(theta / TWO_PI)
 
 
+def cos_sin(theta: torch.Tensor):
+    """``cos`` and ``sin`` of float32 angles, computed in float64 and rounded
+    to float32. The card's and the CPU's float32 ``sin`` / ``cos`` differ in
+    the last bit for 18% / 22% of angles (one H100,
+    ``tools/card_cpu_cells.py``), which moves a point next to a cell edge
+    into the neighbouring cell on one device only; rounded from float64
+    they gave the same bits for all 4,000,000 angles there."""
+    t = theta.double()
+    return torch.cos(t).to(theta.dtype), torch.sin(t).to(theta.dtype)
+
+
 def rot(theta: torch.Tensor) -> torch.Tensor:
     """Rotation matrices ``[..., 2, 2]`` from angles ``[...]``."""
     c, s = torch.cos(theta), torch.sin(theta)
@@ -55,8 +66,9 @@ def relative(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def apply(a: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Transform points ``[..., P, 2]`` by poses ``[..., 3]``."""
-    ca, sa = torch.cos(a[..., 2]), torch.sin(a[..., 2])
+    """Transform points ``[..., P, 2]`` by poses ``[..., 3]`` (the rotation
+    from :func:`cos_sin`: the same world points on the card and the CPU)."""
+    ca, sa = cos_sin(a[..., 2])
     px, py = pts[..., 0], pts[..., 1]
     ca, sa = ca[..., None], sa[..., None]
     x = ca * px - sa * py + a[..., 0:1]
@@ -75,3 +87,29 @@ def oplus(pose: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def exp(xi: torch.Tensor) -> torch.Tensor:
+    """SE(2) exponential map from twist ``(vx, vy, omega)`` to a pose."""
+    w = xi[..., 2]
+    # Taylor-safe sinc terms
+    small = torch.abs(w) < 1e-6
+    ws = torch.where(small, torch.ones_like(w), w)
+    a = torch.where(small, 1.0 - w * w / 6.0, torch.sin(ws) / ws)
+    b = torch.where(small, w / 2.0, (1.0 - torch.cos(ws)) / ws)
+    x = a * xi[..., 0] - b * xi[..., 1]
+    y = b * xi[..., 0] + a * xi[..., 1]
+    return torch.stack([x, y, normalize_angle(w)], dim=-1)
+
+
+def log(pose: torch.Tensor) -> torch.Tensor:
+    """SE(2) logarithm map, inverse of :func:`exp`."""
+    w = pose[..., 2]
+    small = torch.abs(w) < 1e-6
+    half = torch.where(small, torch.ones_like(w), w) / 2.0
+    # V⁻¹ = [[A, B], [-B, A]] with A = (w/2)·cot(w/2), B = w/2
+    a = torch.where(small, 1.0 - w * w / 12.0, half / torch.tan(half))
+    b = w / 2.0
+    vx = a * pose[..., 0] + b * pose[..., 1]
+    vy = -b * pose[..., 0] + a * pose[..., 1]
+    return torch.stack([vx, vy, normalize_angle(w)], dim=-1)

@@ -92,7 +92,35 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    in robot 0's process K1 launches = 3 per keyframe, K2 = 4 per global
    search (a keyframe or a comm round), every one the fused pair, no
    probe. Prints the wall time, the time a tick, keyframes, messages and
-   bytes sent and received, and the dropped counters of each robot.
+   bytes sent and received, and the dropped counters of each robot;
+11. the matcher's other modes and the exchange's two options, on live
+   inputs of phases 3 and 6, each on the card and on the CPU (plain
+   versions) with the same inputs: (a) ``global_match`` of ``srslam``
+   keyframe n/2 against the LC grid of its ±10 neighbours from a guess
+   moved by (1.0 m, 0.5 m, 0.6 rad), and (b) ``loop_closure_match_
+   hierarchical`` from one moved by (0.8 m, -0.6 m, 0.3 rad): both find
+   the keyframe's pose to one finest lattice step, card and CPU poses
+   within 1e-4 and scores within 1e-5, K2's single-grid entry launched
+   once per level (4 and 3), never the pair; (c) ``loop_closure_match`` of
+   the first keyframe that closed a loop, regions at its pose and its loop
+   partners' on one grid of their neighbourhoods: one K1 launch, card and
+   CPU alike; (d) K2's single-grid entry at each level's shape of (a) and
+   (b), and K1 at (c)'s shape, on the calls' captured inputs, against the
+   plain version, timed and probed as in phase 4 (records with ``"pair":
+   false``, the phase's launches, ``launches_main_path`` 0: no deployment
+   calls these modes by default); (e) every global search of phase 6 that
+   accepted a match, replayed through ``try_match_parked`` with
+   ``detect_robot_in_range`` on the card, the first 12 also on the CPU
+   (card and CPU decide alike and match the same poses); prints, for the
+   first 12 and for all, how many the gate passes, how many matches are
+   wrong (over 1 m from the ground-truth relative pose) and how many of
+   those it passes; (f) ``build_star(gauge_mode="optimal")`` at phase 6's
+   first star (at most 8 candidates): the same gauge on the card and the
+   CPU, K and the time; (g) ``spanning_tree_guess`` (as many sweeps as
+   live vertices) then ``optimize_lm`` (15 iterations) of phase 3's final
+   graph with its free poses perturbed (σ 0.3 m, 0.1 rad, seed 0): equal
+   hop distances, tree poses within 1e-4, chi2 lower after LM on both, LM
+   poses within 1e-3.
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -154,6 +182,20 @@ UDP_DIR = ROOT / "chiprun_out" / "udp"
 UDP_TICKS = 400
 TICK_SECONDS = 0.3
 UDP_START_DELAY = 20.0
+# phase 11: keyframe k's map is the scans of its ±MAP_WINDOW neighbours;
+# the guesses of (a) and (b) are moved by these offsets (x, y, θ), each a
+# whole number of finest lattice steps, inside each mode's window
+MAP_WINDOW = 10
+PLANTED = (1.0, 0.5, 0.6)
+PLANTED_LC = (0.8, -0.6, 0.3)
+# the strides of each mode's hierarchical levels at the LC grid's 0.1 m
+GLOBAL_LEVELS = {8: "level0", 4: "refine4", 2: "refine2", 1: "refine1"}
+LC_LEVELS = {4: "level0", 2: "refine2", 1: "refine1"}
+LC_REGIONS = 4
+N_MATCHES = 12        # (e): accepted global searches also gated on the CPU
+STAR_CAP = 8          # (f): at most this many optimal-gauge candidates
+LM_ITERS = 15
+PERTURB = (0.3, 0.1)  # (g): σ of the free poses' noise, m and rad
 
 
 def log(*a):
@@ -542,12 +584,13 @@ class TimedBand:
         return out
 
 
-def run_mr(device, max_ticks=None, capture=None):
+def run_mr(device, max_ticks=None, capture=None, matches=None):
     """The ``cg_mrslam`` deployment through ``MultiRobotSim`` on
     ``device``. Records, per exchange round, the tick and each robot's
-    outcomes and own poses, and the keyframe ticks of each robot. Returns
-    ``(sim, times, log)``: ``times`` maps each timed step to its times in
-    ms."""
+    outcomes and own poses, and the keyframe ticks of each robot; with
+    ``matches`` (a :class:`MatchCapture`), the inputs of accepted global
+    searches and of the first star built. Returns ``(sim, times, log)``:
+    ``times`` maps each timed step to its times in ms."""
     from cg_mrslam_tpu_torch.mr import mrslam as MR
     from cg_mrslam_tpu_torch.mr.sim import MultiRobotSim
     from cg_mrslam_tpu_torch.sim import world as W
@@ -576,12 +619,17 @@ def run_mr(device, max_ticks=None, capture=None):
         timers["exchange_round"](t, modality)
         if capture is not None and capture.armed:
             capture.settle(len(log["rounds"]))
+        if matches is not None:
+            matches.settle(t)
         log["rounds"].append((t, [outcomes(st) for st in sim.states],
                               [own_poses(st) for st in sim.states]))
 
     sim.keyframe, sim.exchange_round = on_keyframe, on_exchange
     MR.try_match_parked = timers["try_match_parked"]
     MR.build_star = timers["build_star"]
+    if matches is not None:
+        MR.try_match_parked = matches.wrap_match(MR.try_match_parked)
+        MR.build_star = matches.wrap_star(MR.build_star)
     for tb in bands:
         setattr(gn, tb.name, tb)
     try:
@@ -1013,6 +1061,379 @@ def phase_udp(probes, tick_seconds: float = TICK_SECONDS) -> dict:
     return launches
 
 
+class MatchCapture:
+    """Keeps, from a multi-robot run, the input state and the buffered
+    hypothesis of every global search that accepted a match
+    (``try_match_parked`` with ``ok`` true), and the input of the first
+    ``build_star`` call with a requested boundary. The calls are held for
+    one exchange round and sorted out after it, outside its clock (a host
+    read of the buffered hypotheses)."""
+
+    def __init__(self):
+        self.matches = []    # (tick, state in, hypothesis)
+        self.star = None     # (tick, state, peer)
+        self._calls, self._stars = [], []
+
+    def wrap_match(self, fn):
+        def call(st, cfg):
+            out = fn(st, cfg)
+            self._calls.append((st, out))
+            return out
+        return call
+
+    def wrap_star(self, fn):
+        def call(st, peer, *a, **k):
+            if self.star is None:
+                self._stars.append((st, peer))
+            return fn(st, peer, *a, **k)
+        return call
+
+    def settle(self, t: int) -> None:
+        for st, out in self._calls:
+            hyp = new_hypothesis(st, out)
+            if hyp is not None:
+                self.matches.append((t, st, hyp))
+        for st, peer in self._stars:
+            if self.star is None and bool(st.in_closures[peer].any()):
+                self.star = (t, st, peer)
+        self._calls.clear()
+        self._stars.clear()
+
+
+def new_hypothesis(st, out):
+    """The hypothesis a ``try_match_parked`` call buffered, read on the
+    host: ``(my vertex, matched vertex, z)``, or None when it matched
+    nothing (a rejected match writes no slot, so the buffers are equal)."""
+    a, b = st.peer_buf, out.peer_buf
+    changed = ((a.mask != b.mask) | (a.age != b.age) | (a.v_old != b.v_old)
+               | (a.v_new != b.v_new) | (a.z != b.z).any(-1))
+    at = torch.nonzero(changed)
+    if at.numel() == 0:
+        return None
+    assert at.shape[0] == 1, at
+    p, w = at[0].tolist()
+    return int(b.v_old[p, w]), int(b.v_new[p, w]), b.z[p, w].cpu().numpy()
+
+
+def wrap_angle(d: np.ndarray) -> np.ndarray:
+    d = np.asarray(d, np.float64).copy()
+    d[..., 2] = (d[..., 2] + np.pi) % (2 * np.pi) - np.pi
+    return d
+
+
+def timed_call(fn, cuda: bool):
+    """``fn()`` and its wall seconds (the card synchronized around it)."""
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def keyframe_map(state, slots):
+    """World points and mask of the scans of ``slots`` (``srslam`` state)."""
+    from cg_mrslam_tpu_torch.core import scan as S
+    from cg_mrslam_tpu_torch.utils import se2
+
+    s = torch.as_tensor(slots, device=state.graph.poses.device).long()
+    pts = se2.apply(state.graph.poses[s], S.scan_points(state.scans, s))
+    valid = S.beam_valid(state.scans, s) & state.scans.smask[s][:, None]
+    return pts.reshape(-1, 2), valid.reshape(-1)
+
+
+def keyframe_scan(state, k: int):
+    from cg_mrslam_tpu_torch.core import scan as S
+
+    kk = torch.tensor([k], device=state.graph.poses.device)
+    return (S.scan_points(state.scans, kk)[0],
+            S.beam_valid(state.scans, kk)[0] & state.scans.smask[k])
+
+
+def on_cpu(args):
+    return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+def phase_matcher(slam, cfg, matches, sim, mlog, probes, ghz, udp):
+    """Phase 11 (see the module docstring). Returns the kernel and probe
+    records of the new shapes."""
+    import dataclasses
+
+    import cg_mrslam_tpu_torch.matcher.search as search
+    from cg_mrslam_tpu_torch import convert
+    from cg_mrslam_tpu_torch.core import graph as G
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.matcher import matching as M
+    from cg_mrslam_tpu_torch.mr import mrslam as MR
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+    from cg_mrslam_tpu_torch.solver import initial_guess as IG
+    from cg_mrslam_tpu_torch.utils import se2
+
+    cpu = torch.device("cpu")
+    torch.set_num_threads(8)
+    records, probe_records = [], []
+    state = slam.state
+    card = state.graph.poses.device
+    on_card = card.type == "cuda"
+    n_kf = len(slam.infos)
+    lc, win = cfg.lc_matcher, cfg.windows
+
+    # (a), (b): keyframe k against the LC grid of its ±MAP_WINDOW
+    # neighbours, from a guess moved by a planted offset
+    k = n_kf // 2
+    nb = [j for j in range(k - MAP_WINDOW, k + MAP_WINDOW + 1) if j != k]
+    ref, ref_valid = keyframe_map(state, nb)
+    cur, cur_valid = keyframe_scan(state, k)
+    pose_k = state.graph.poses[k].cpu().numpy()
+    for mode, fn, planted, strides in (
+            ("global", M.global_match, PLANTED, GLOBAL_LEVELS),
+            ("lc_hierarchical", M.loop_closure_match_hierarchical,
+             PLANTED_LC, LC_LEVELS)):
+        guess = torch.as_tensor(pose_k + np.asarray(planted, np.float32),
+                                device=card)
+        args = (ref, ref_valid, cur, cur_valid, guess)
+        capture = Capture(K.SCORE_VOLUME_STRIDED,
+                          lambda a, strides=strides: strides[a[8]],
+                          set(strides.values()))
+        search.SCORE_VOLUME_STRIDED = capture
+        K.SCORE_VOLUME_STRIDED.launches = 0
+        K.SCORE_VOLUME_STRIDED.launches_by_shape.clear()
+        try:
+            got, sec = timed_call(lambda: fn(*args, cfg=lc, windows=win),
+                                  on_card)
+        finally:
+            search.SCORE_VOLUME_STRIDED = K.SCORE_VOLUME_STRIDED
+        launches = K.SCORE_VOLUME_STRIDED.launches
+        by_shape = dict(K.SCORE_VOLUME_STRIDED.launches_by_shape)
+        capture.settle(k)
+        want, sec_cpu = timed_call(lambda: fn(*on_cpu(args), cfg=lc,
+                                              windows=win), False)
+        d_card = wrap_angle(got.pose.cpu().numpy() - pose_k)
+        d_cpu = wrap_angle(want.pose.numpy() - pose_k)
+        log(f"matcher: {mode} of keyframe {k} on its {len(nb)} neighbours' "
+            f"grid from a guess {planted} off: card {sec * 1e3:.2f} ms "
+            f"(host clock, synchronized), CPU {sec_cpu * 1e3:.1f} ms; "
+            f"pose error card {np.round(d_card, 5).tolist()}, CPU "
+            f"{np.round(d_cpu, 5).tolist()}; score card "
+            f"{float(got.score):.6f}, CPU {float(want.score):.6f}; K2 "
+            f"launches {launches} {by_shape}")
+        step = np.asarray([lc.resolution, lc.resolution, win.lc_th_res
+                           if mode == "lc_hierarchical"
+                           else win.global_th_res]) + 1e-4
+        assert np.all(np.abs(d_card) <= step), (mode, d_card)
+        assert np.all(np.abs(d_cpu) <= step), (mode, d_cpu)
+        assert np.abs(wrap_angle(got.pose.cpu().numpy()
+                                 - want.pose.numpy())).max() <= 1e-4
+        assert abs(float(got.score) - float(want.score)) <= 1e-5
+        assert launches == len(strides), (mode, launches)
+        # every level one launch of the single-grid entry (no pair: keys
+        # (B, T, Dy, Dx, sy, sx))
+        assert all(len(key) == 6 for key in by_shape), by_shape
+        assert sorted(capture.calls) == sorted(strides.values()), \
+            sorted(capture.calls)
+        for stride, name in strides.items():
+            cargs = capture.calls[name]
+            dev = cargs[0].device
+            ty = lattice(cargs[6], stride, dev)
+            tx = lattice(cargs[7], stride, dev)
+            rec = check_kernel(K.SCORE_VOLUME_STRIDED, cargs, ty, tx)
+            key = tuple(rec["shape"]) + (stride, stride)
+            rec = {"name": f"score_volume_strided[{mode}_{name}]",
+                   "route": "cuda", "source": SOURCE,
+                   "replaces": REPLACES_K2, "pair": False,
+                   "launches": by_shape[key], "launches_main_path": 0,
+                   "launches_udp_robot0": udp[K.SCORE_VOLUME_STRIDED].get(
+                       key, 0),
+                   "stride": stride, **rec}
+            assert by_shape[key] == 1, (mode, name, by_shape)
+            records.append(rec)
+            log(kernel_line(rec, ghz) + f" ({mode}, {rec['live_volumes']} "
+                f"live volumes, spread {rec['spread_dy']:.4g}/"
+                f"{rec['spread_dx']:.4g})")
+            for pr in check_probes(cargs, ty, tx, f"{mode}_{name}"):
+                pr["launches"] = 0
+                probe_records.append(pr)
+                log(kernel_line(pr, ghz))
+
+    # (c) the region search of a keyframe that closed a loop: regions at
+    # its own pose and at its loop partners', one shared grid of the
+    # partners' neighbourhoods (one K1 launch)
+    g = state.graph
+    ij = np.sort(g.e_ij.cpu().numpy()[g.emask.cpu().numpy()], axis=1)
+    loops = ij[ij[:, 1] - ij[:, 0] > 1]          # (old, new) loop edges
+    c = int(loops[:, 1].min())
+    partners = sorted({int(a) for a, b in loops if b == c})
+    regions = np.zeros((LC_REGIONS, 3), np.float32)
+    rvalid = np.zeros(LC_REGIONS, bool)
+    poses = g.poses.cpu().numpy()
+    for i, v in enumerate([c] + partners[:LC_REGIONS - 1]):
+        regions[i], rvalid[i] = poses[v], True
+    near = sorted({j for p in partners for j in range(p - 5, p + 6)
+                   if 0 <= j < n_kf + 1 and abs(j - c) > 1})
+    ref, ref_valid = keyframe_map(state, near)
+    cur, cur_valid = keyframe_scan(state, c)
+    args = (ref, ref_valid, cur, cur_valid,
+            torch.as_tensor(regions, device=card),
+            torch.as_tensor(rvalid, device=card))
+    capture = Capture(K.SCORE_VOLUME, lambda a: "lc_shared", {"lc_shared"})
+    search.SCORE_VOLUME = capture
+    K.SCORE_VOLUME.launches = 0
+    K.SCORE_VOLUME.launches_by_shape.clear()
+    try:
+        got, sec = timed_call(lambda: M.loop_closure_match(
+            *args, cfg=lc, windows=win), on_card)
+    finally:
+        search.SCORE_VOLUME = K.SCORE_VOLUME
+    k1 = K.SCORE_VOLUME.launches
+    k1_by = dict(K.SCORE_VOLUME.launches_by_shape)
+    capture.settle(c)
+    want, sec_cpu = timed_call(lambda: M.loop_closure_match(
+        *on_cpu(args), cfg=lc, windows=win), False)
+    log(f"matcher: loop_closure_match of keyframe {c} (loop partners "
+        f"{partners}), {int(rvalid.sum())} regions + twins on one grid of "
+        f"{len(near)} scans: card {sec * 1e3:.2f} ms, CPU "
+        f"{sec_cpu * 1e3:.1f} ms; scores card "
+        f"{np.round(got.scores.cpu().numpy(), 6).tolist()}, CPU "
+        f"{np.round(want.scores.numpy(), 6).tolist()}; K1 launches {k1} "
+        f"{k1_by}")
+    assert k1 == 1 and rvalid.sum() >= 2, (k1, partners)
+    assert np.abs(wrap_angle(got.poses.cpu().numpy()
+                             - want.poses.numpy())).max() <= 1e-4
+    assert float((got.scores.cpu() - want.scores).abs().max()) <= 1e-5
+    cargs = capture.calls["lc_shared"]
+    dev = cargs[0].device
+    ty, tx = lattice(cargs[6], 1, dev), lattice(cargs[7], 1, dev)
+    rec = check_kernel(K.SCORE_VOLUME, cargs, ty, tx)
+    key = tuple(rec["shape"])
+    rec = {"name": "score_volume[lc_shared_grid]", "route": "cuda",
+           "source": SOURCE, "replaces": REPLACES, "launches": k1_by[key],
+           "launches_main_path": 0,
+           "launches_udp_robot0": udp[K.SCORE_VOLUME].get(key, 0), **rec}
+    records.append(rec)
+    log(kernel_line(rec, ghz) + f" ({rec['live_volumes']} live volumes)")
+    for pr in check_probes(cargs, ty, tx, "lc_shared_grid"):
+        pr["launches"] = 0
+        probe_records.append(pr)
+        log(kernel_line(pr, ghz))
+
+    # (e) the visibility gate on phase 6's accepted global searches: all
+    # of them on the card, the first N_MATCHES also on the CPU
+    assert len(matches.matches) >= N_MATCHES, len(matches.matches)
+    mcfg = sim.cfg
+    gated = dataclasses.replace(mcfg, mr=dataclasses.replace(
+        mcfg.mr, detect_robot_in_range=True))
+    kf_ticks = mlog["kf_ticks"]
+    passed, wrong, t_gate = [], [], []
+    for i, (t, st, (v_ref, v_new, z)) in enumerate(matches.matches):
+        on, sec = timed_call(lambda: MR.try_match_parked(st, gated), on_card)
+        t_gate.append(sec * 1e3)
+        hyp = new_hypothesis(st, on)
+        if i < N_MATCHES:
+            st_cpu = convert.mr_state_from_numpy(convert.to_numpy(st), cpu)
+            hyp_cpu = new_hypothesis(st_cpu,
+                                     MR.try_match_parked(st_cpu, gated))
+            ungated = new_hypothesis(st_cpu,
+                                     MR.try_match_parked(st_cpu, mcfg))
+            assert (hyp is None) == (hyp_cpu is None), t
+            assert ungated is not None and ungated[:2] == (v_ref, v_new), t
+            assert np.abs(wrap_angle(ungated[2] - z)).max() <= 1e-4, t
+            if hyp is not None:
+                assert hyp[:2] == (v_ref, v_new) == hyp_cpu[:2], t
+                assert np.abs(wrap_angle(hyp[2] - hyp_cpu[2])).max() <= 1e-4
+        r = int(st.slam.my_id)
+        vr = st.slam.v_remote.cpu().numpy()
+        peer = int(st.slam.v_owner[v_new])
+        gt_ref = sim.trajs[r].gt[kf_ticks[r][vr[v_ref]]]
+        gt_new = sim.trajs[peer].gt[kf_ticks[peer][vr[v_new]]]
+        z_gt = se2.relative(torch.as_tensor(gt_ref, dtype=torch.float64),
+                            torch.as_tensor(gt_new, dtype=torch.float64))
+        passed.append(hyp is not None)
+        wrong.append(float(np.hypot(*(z[:2] - z_gt[:2].numpy()))) > 1.0)
+    passed, wrong = np.asarray(passed), np.asarray(wrong)
+    first = slice(0, N_MATCHES)
+    log(f"matcher: visibility gate on phase 6's accepted global searches: "
+        f"the first {N_MATCHES} (ticks {matches.matches[0][0]}.."
+        f"{matches.matches[N_MATCHES - 1][0]}; card and CPU decide alike): "
+        f"the gate passes {int(passed[first].sum())}, {int(wrong[first].sum())}"
+        f" are wrong (> 1 m from the ground-truth relative pose), the gate "
+        f"passes {int((passed & wrong)[first].sum())} of those; all "
+        f"{len(passed)} (ticks up to {matches.matches[-1][0]}, on the card): "
+        f"the gate passes {int(passed.sum())}, {int(wrong.sum())} are wrong, "
+        f"the gate passes {int((passed & wrong).sum())} of those; gated "
+        f"try_match_parked {percentiles(t_gate)} (host clock, "
+        f"synchronized)")
+
+    # (f) the optimal gauge at the first star of phase 6
+    t, st, peer = matches.star
+    sel = st.in_closures[peer]
+    n_req = int(sel.sum())
+    if n_req > STAR_CAP:
+        score = torch.where(sel, st.slam.v_remote,
+                            torch.full_like(st.slam.v_remote, -1))
+        _, keep = G.first_k(score, STAR_CAP)
+        row = torch.zeros_like(sel)
+        row[keep] = True
+        in_c = st.in_closures.clone()
+        in_c[peer] = row
+        st = dataclasses.replace(st, in_closures=in_c)
+    n_k = int(st.in_closures[peer].sum())
+    st_cpu = convert.mr_state_from_numpy(convert.to_numpy(st), cpu)
+    gn.BAND_CALLS.clear()
+    star, sec = timed_call(lambda: MR.build_star(st, peer,
+                                                 gauge_mode="optimal"),
+                           on_card)
+    bands = dict(gn.BAND_CALLS)
+    star_cpu, sec_cpu = timed_call(lambda: MR.build_star(
+        st_cpu, peer, gauge_mode="optimal"), False)
+    centroid = MR.build_star(st, peer)
+    log(f"matcher: optimal gauge at the first star (tick {t}, robot "
+        f"{int(st.slam.my_id)} to {peer}): K = {n_k} candidates"
+        + (f" (the first {STAR_CAP} of {n_req} requested, newest first)"
+           if n_req > STAR_CAP else "")
+        + f"; gauge {int(star.gauge)} on the card, {int(star_cpu.gauge)} "
+        f"on the CPU (centroid gauge {int(centroid.gauge)}); build_star "
+        f"card {sec:.3f} s (host clock, synchronized; solver bands "
+        f"{bands}), CPU {sec_cpu:.2f} s")
+    assert int(star.gauge) == int(star_cpu.gauge)
+
+    # (g) LM from the spanning-tree guess on phase 3's final graph with its
+    # free poses perturbed
+    rng = np.random.default_rng(0)
+    free = (g.vmask & ~g.fixed).cpu().numpy()
+    noise = rng.normal(0.0, 1.0, g.poses.shape) * np.asarray(
+        PERTURB)[[0, 0, 1]] * free[:, None]
+    p0 = g.poses + torch.as_tensor(noise, dtype=torch.float32, device=card)
+    p0 = torch.cat([p0[:, :2], se2.normalize_angle(p0[:, 2:])], 1)
+    g0 = dataclasses.replace(g, poses=p0)
+    sweeps = int(g.n_vertices)
+    out = {}
+    for name, gg in (("card", g0), ("cpu", convert.from_numpy(
+            type(g0), convert.to_numpy(g0), cpu))):
+        sync = on_card and name == "card"
+        (dist, poses), t_tree = timed_call(
+            lambda gg=gg: IG.spanning_tree(gg, sweeps=sweeps), sync)
+        tree = dataclasses.replace(gg, poses=poses)
+        lm, t_lm = timed_call(lambda: gn.optimize_lm(tree, LM_ITERS), sync)
+        chi = [float(chi2(x)) for x in (gg, tree, lm)]
+        log(f"matcher: {name}: chi2 perturbed {chi[0]:.4f}, after the "
+            f"spanning tree ({sweeps} sweeps, {t_tree:.3f} s) {chi[1]:.4f}, "
+            f"after optimize_lm ({LM_ITERS} iterations, {t_lm:.3f} s) "
+            f"{chi[2]:.4f}")
+        assert chi[2] < chi[1], (name, chi)
+        out[name] = dist.cpu(), poses.cpu().numpy(), lm.poses.cpu().numpy()
+    (d_a, tree_a, lm_a), (d_b, tree_b, lm_b) = out["card"], out["cpu"]
+    d_tree = np.abs(wrap_angle(tree_a - tree_b)).max()
+    d_lm = np.abs(wrap_angle(lm_a - lm_b)).max()
+    log(f"matcher: card against CPU: hop distances equal "
+        f"{bool(torch.equal(d_a, d_b))}, tree poses {d_tree:.3g}, LM poses "
+        f"{d_lm:.3g}")
+    assert torch.equal(d_a, d_b) and d_tree <= 1e-4 and d_lm <= 1e-3, \
+        (d_tree, d_lm)
+    return records, probe_records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1131,7 +1552,8 @@ def main() -> int:
     gn.BAND_CALLS.clear()
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    sim, times, mlog = run_mr("cuda", capture=capture2)
+    matches = MatchCapture()
+    sim, times, mlog = run_mr("cuda", capture=capture2, matches=matches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_mr = K.SCORE_VOLUME.launches
@@ -1258,6 +1680,14 @@ def main() -> int:
                                      else ())
         rec["launches_udp_robot0"] = udp[kernel].get(key, 0)
     log(f"udp: phase 10 in {time.perf_counter() - t0:.1f} s")
+
+    # --- 11. the matcher's other modes and the exchange's two options ---
+    t0 = time.perf_counter()
+    recs, probe_recs = phase_matcher(slam, cfg, matches, sim, mlog, probes,
+                                     ghz, udp)
+    records += recs
+    probe_records += probe_recs
+    log(f"matcher: phase 11 in {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": records + probe_records}), flush=True)

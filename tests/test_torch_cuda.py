@@ -8,8 +8,11 @@ synchronization, the solver's float sums repeated bit for bit (summed with
 ``index_add_``, these repeats differed), and the occupancy map on the card
 against the CPU, and two robot nodes on the card (K1 three times a
 keyframe, K2's pair per global search, no probe) whose messages decode onto
-the card as on the CPU. Every test carries the ``cuda`` marker and skips
-where there is no NVIDIA GPU.
+the card as on the CPU; K2's single-grid entry at the lattices of
+``global_match`` and ``loop_closure_match_hierarchical``, ``global_match``
+on the card against the CPU, the visibility gate adding no host sync, and
+cells on the card equal to the CPU's for points on cell edges. Every test
+carries the ``cuda`` marker and skips where there is no NVIDIA GPU.
 
 This file imports neither JAX nor ``cg_mrslam_tpu``, so it also runs on a
 machine without them (``tests/conftest.py`` imports JAX, hence
@@ -778,3 +781,219 @@ def test_two_processes_build_the_kernel_at_once(dev, tmp_path):
         assert p.returncode == 0 and out.strip() == "ok True", err[-2000:]
     assert len(list(tmp_path.glob("libscore_volume-*.so"))) == 1
     assert not list(tmp_path.glob("tmp*")), list(tmp_path.iterdir())
+
+
+# --- the matcher's other modes: K2's single-grid entry -------------------
+#
+# global_match and loop_closure_match_hierarchical search without
+# known_cap, so on the card every level of their hierarchical search is
+# one launch of K2's single-grid entry (not the fused pair). Lattices (T,
+# ny, nx, stride, batch) at the LC grid's 0.1 m: global level 0 at stride
+# 8, the refine levels of 16 survivors at strides 4, 2, 1 (the
+# hierarchical loop closure's refines at 2 and 1 have the same shapes), and
+# the hierarchical loop closure's level 0 at stride 4.
+SINGLE = [(33, 6, 12, 8, 1), (5, 2, 2, 4, 16), (5, 2, 2, 2, 16),
+          (5, 2, 2, 1, 16), (21, 5, 5, 4, 1)]
+
+
+@pytest.mark.parametrize("t,ny,nx,stride,bsz", SINGLE)
+def test_single_grid_k2_at_matcher_shapes(dev, t, ny, nx, stride, bsz):
+    grids, _, (ix, iy, keep, count) = _inputs(dev, t, 700, 0.1, bsz,
+                                              seed=t + stride)
+    grid = grids[:1].contiguous()
+    gidx = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    before = K.SCORE_VOLUME_STRIDED.launches
+    key = (bsz, t, 2 * ny + 1, 2 * nx + 1, stride, stride)
+    by_key = K.SCORE_VOLUME_STRIDED.launches_by_shape[key]
+    got = K.SCORE_VOLUME_STRIDED(grid, gidx, ix, iy, keep, count, ny, nx,
+                                 stride, stride)
+    assert K.SCORE_VOLUME_STRIDED.launches == before + 1
+    assert K.SCORE_VOLUME_STRIDED.launches_by_shape[key] == by_key + 1
+    want = K.volume_plain(grid, gidx, ix, iy, keep, count,
+                          _lattice(ny, stride, dev), _lattice(nx, stride, dev))
+    torch.cuda.synchronize()
+    assert got.shape == key[:4]
+    assert float((want.amax(2) - want.amin(2)).max()) > 100 * ATOL
+    assert float((want.amax(3) - want.amin(3)).max()) > 100 * ATOL
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _world_scan(pose, beams=240, fov=1.5 * math.pi, max_range=10.0):
+    """A scan of the small hospital world from ``pose`` (CPU): points in
+    the scan frame and their valid mask."""
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    segs = W.hospital_world(16.0, 10.0, seed=2).as_tensor("cpu")
+    r = W.raycast(segs, torch.as_tensor(pose, dtype=torch.float32), beams,
+                  -fov / 2, fov / beams, max_range)
+    a = -fov / 2 + fov / beams * torch.arange(beams, dtype=torch.float32)
+    pts = torch.stack([r * torch.cos(a), r * torch.sin(a)], -1)
+    return pts, r < max_range * 0.999
+
+
+def test_global_match_on_the_card_matches_cpu(dev, monkeypatch):
+    """``global_match`` on the same inputs on the card and on the CPU: the
+    same pose (1e-4) and score (1e-5; the cells are the same bits on both,
+    only the kernel's summation order differs), four launches of K2's
+    single-grid entry, no pair, no probe, and the planted pose found."""
+    from cg_mrslam_tpu_torch.config import MatcherConfig, SearchWindows
+    from cg_mrslam_tpu_torch.matcher import matching as TM
+    from cg_mrslam_tpu_torch.matcher import search as TS
+    from cg_mrslam_tpu_torch.utils import se2
+
+    seen = []
+
+    def spy(*args):
+        seen.append((args[0].shape[0], args[8], len(args) > 10
+                     and args[10] is not None))
+        return K.SCORE_VOLUME_STRIDED(*args)
+
+    monkeypatch.setattr(TS, "SCORE_VOLUME_STRIDED", spy)
+    cfg = MatcherConfig(extent=30.0, resolution=0.1, kernel_radius=0.5)
+    pose_a = torch.tensor([8.0, 5.0, 0.1])
+    true_b = torch.tensor([8.6, 4.7, 0.9])
+    pts_a, va = _world_scan(pose_a)
+    pts_b, vb = _world_scan(true_b)
+    ref = se2.apply(pose_a, pts_a)
+    guess = true_b + torch.tensor([1.0, 0.5, 0.6])
+    args = (ref, va, pts_b, vb, guess)
+    probes = [K.PROBE_NO_GATHER.launches, K.PROBE_CONST_CELLS.launches]
+    before = K.SCORE_VOLUME_STRIDED.launches
+    got = TM.global_match(*(a.to(dev) for a in args), cfg=cfg,
+                          windows=SearchWindows())
+    torch.cuda.synchronize()
+    assert K.SCORE_VOLUME_STRIDED.launches == before + 4
+    assert seen == [(1, 8, False), (1, 4, False), (1, 2, False),
+                    (1, 1, False)], seen
+    assert [K.PROBE_NO_GATHER.launches,
+            K.PROBE_CONST_CELLS.launches] == probes
+    want = TM.global_match(*args, cfg=cfg, windows=SearchWindows())
+    torch.testing.assert_close(got.pose.cpu(), want.pose, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got.score.cpu(), want.score, rtol=0,
+                               atol=1e-5)
+    err = (got.pose.cpu() - true_b).abs()
+    assert float(err[:2].max()) <= 0.1 + 1e-4 and float(err[2]) <= 0.025 + 1e-4
+
+
+def _find_syncs():
+    """``count_syncs`` of ``tools/find_torch_syncs.py``."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "tools" / \
+        "find_torch_syncs.py"
+    spec = importlib.util.spec_from_file_location("find_torch_syncs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.count_syncs
+
+
+def test_gate_adds_no_host_sync(dev):
+    """``try_match_parked`` with the visibility gate on synchronizes with the
+    host exactly as often as with it off (counted by
+    ``tools/find_torch_syncs.py``'s ``count_syncs``), and its outcome on the
+    card equals the CPU's from the same state."""
+    import dataclasses as dc
+
+    from cg_mrslam_tpu_torch import convert
+    from cg_mrslam_tpu_torch.config import (Config, MatcherConfig, MRConfig,
+                                            SlamConfig)
+    from cg_mrslam_tpu_torch.mr import mrslam as MR
+    from cg_mrslam_tpu_torch.mr.sim import MultiRobotSim
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    cfg = Config(
+        slam=SlamConfig(min_inliers=4, window_loop_closure=8),
+        mr=MRConfig(n_robots=2, min_inliers_mr=4, sim_comm_range=6.0,
+                    max_score_mr=0.2),
+        close_matcher=MatcherConfig(extent=16.0, resolution=0.05,
+                                    kernel_radius=0.2),
+        lc_matcher=MatcherConfig(extent=24.0, resolution=0.1,
+                                 kernel_radius=0.5),
+        max_vertices=192, max_edges=1024)
+    sim = MultiRobotSim(cfg, W.hospital_world(width=16.0, height=10.0,
+                                              seed=2),
+                        beams=120, seed=11, n_loops=2, width=16.0,
+                        height=10.0, device="cuda")
+    parked = []        # robot 0 holding a parked vertex, before a round
+    exchange = sim.exchange_round
+
+    def recording(t, modality="sim"):
+        st = MR.receive_combo(sim.states[0], MR.build_combo(sim.states[1]),
+                              True)
+        if not parked and bool(st.parked.any()):
+            parked.append(st)
+        exchange(t, modality)
+
+    sim.exchange_round = recording
+    sim.run(max_ticks=40)
+    st = parked[0]
+    count_syncs = _find_syncs()
+    gated = dc.replace(cfg, mr=dc.replace(cfg.mr,
+                                          detect_robot_in_range=True))
+    counts = {}
+    for name, c in (("off", cfg), ("on", gated)):
+        MR.try_match_parked(st, c)          # warm: the kernel library
+        out, where = count_syncs(lambda c=c: MR.try_match_parked(st, c))
+        counts[name] = sum(where.values())
+    assert counts["on"] == counts["off"], counts
+    cpu = convert.mr_state_from_numpy(convert.to_numpy(st),
+                                      torch.device("cpu"))
+    want = MR.try_match_parked(cpu, gated)
+    for f in ("parked", "park_age"):
+        assert torch.equal(getattr(out, f).cpu(), getattr(want, f))
+    assert torch.equal(out.peer_buf.mask.cpu(), want.peer_buf.mask)
+    torch.testing.assert_close(out.slam.graph.poses.cpu(),
+                               want.slam.graph.poses, rtol=0, atol=1e-4)
+
+
+def _straddling(res, cells):
+    """float32 offsets near multiples of ``res`` whose quotient by ``res``
+    and product with ``1/res`` (what a CUDA division by a Python number
+    computes) fall in different cells once ``cells/2`` is added."""
+    rf = np.float32(res)
+    inv = np.float32(1.0) / rf
+    h = np.float32(cells / 2.0)
+    out = []
+    for k in range(-cells // 2 - 2, cells // 2 + 2):
+        near = (np.asarray(np.float32(k * res)).view(np.int32)
+                + np.arange(-64, 64, dtype=np.int32)).view(np.float32)
+        near = near[np.isfinite(near)]    # bit steps below 0.0 are NaNs
+        a = np.floor((near / rf).astype(np.float32) + h)
+        b = np.floor((near * inv).astype(np.float32) + h)
+        out.extend(near[a != b])
+    return np.asarray(out, np.float32)
+
+
+def test_cells_on_the_card_equal_the_cpus(dev):
+    """Points land in the same cells on the card as on the CPU, so a search
+    on the card and on the CPU scores the same cells: the division by the
+    resolution is by a device tensor (``matcher.grid.over``; a CUDA
+    division by a Python number multiplies by the reciprocal, and these
+    quotients sit next to a cell edge), and the rotation's ``cos``/``sin``
+    are rounded from float64 (``se2.cos_sin``; the card's float32 ``sin``
+    and ``cos`` differ from the CPU's in the last bit for about a fifth of
+    angles)."""
+    from cg_mrslam_tpu_torch.matcher.grid import world_to_cell
+    from cg_mrslam_tpu_torch.utils.se2 import cos_sin
+
+    for res, cells in ((0.1, 700), (0.025, 1200)):
+        y = _straddling(res, cells)
+        assert len(y) > 0
+        pts = torch.as_tensor(np.stack([y, y[::-1]], 1))
+        zero = torch.zeros(2)
+        want = world_to_cell(pts, zero, cells, res)
+        got = world_to_cell(pts.to(dev), zero.to(dev), cells, res)
+        assert torch.equal(got.cpu(), want)
+        # the same points as a scan at the zero pose, θ = 0 (cos 1, sin 0)
+        n = len(y)
+        args = (torch.zeros(1, 2), res, cells, pts,
+                torch.ones(1, n, dtype=torch.bool), torch.zeros(1, 3),
+                torch.zeros(1))
+        want = K.volume_cells(*args)
+        got = K.volume_cells(*(a.to(dev) if torch.is_tensor(a) else a
+                               for a in args))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    ang = torch.linspace(-4.0, 4.0, 100_003)
+    for g, w in zip(cos_sin(ang.to(dev)), cos_sin(ang)):
+        assert torch.equal(g.cpu(), w)

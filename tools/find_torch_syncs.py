@@ -1,7 +1,7 @@
 """List the host synchronizations of the port's keyframe step on one GPU.
 
     python3 tools/find_torch_syncs.py [--keyframes N]
-    python3 tools/find_torch_syncs.py --node [--ticks T]
+    python3 tools/find_torch_syncs.py --node [--ticks T] [--gate]
 
 Runs the ``srslam`` default deployment (``chip_smoke.py``'s) on the card
 for N keyframes with ``torch.cuda.set_sync_debug_mode("warn")`` on for the
@@ -15,7 +15,9 @@ process over the native UDP transport on localhost, driven T ticks; then
 the syncs of robot 0's next keyframe tick are counted apart for
 ``observe`` (the keyframe step, the global search and the vote) and for
 ``comm_round`` (decode, receive, search, build and encode), and for the
-next tick without a keyframe.
+next tick without a keyframe. ``--gate`` turns on the visibility gate of
+the global search (``MRConfig.detect_robot_in_range``), which should add
+no synchronization.
 """
 
 from __future__ import annotations
@@ -56,7 +58,9 @@ def report(title, where) -> None:
         print(f"{n:4d}  {loc}")
 
 
-def node_syncs(ticks: int) -> int:
+def node_syncs(ticks: int, gate: bool = False) -> int:
+    import dataclasses
+
     import numpy as np
 
     from cg_mrslam_tpu_torch.mr.node import RobotNode
@@ -64,6 +68,8 @@ def node_syncs(ticks: int) -> int:
     from cg_mrslam_tpu_torch.sim import world as W
 
     cfg = C.deployment_config(2)
+    cfg = dataclasses.replace(cfg, mr=dataclasses.replace(
+        cfg.mr, detect_robot_in_range=gate))
     world = W.hospital_world(40.0, 20.0, seed=0)
     fov = 2 * np.pi * 0.75
     trajs = [W.simulate_robot(world, W.corridor_waypoints(40.0, 20.0, r, 2),
@@ -115,12 +121,13 @@ def main() -> int:
     ap.add_argument("--keyframes", type=int, default=20)
     ap.add_argument("--node", action="store_true")
     ap.add_argument("--ticks", type=int, default=200)
+    ap.add_argument("--gate", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 2
     if a.node:
-        return node_syncs(a.ticks)
+        return node_syncs(a.ticks, a.gate)
     from cg_mrslam_tpu_torch.pipeline.slam import SingleRobotSlam
 
     cfg, traj, fov = C.srslam_setup()
