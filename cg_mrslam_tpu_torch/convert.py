@@ -7,7 +7,8 @@ array-likes, so it flattens the reference's ``SlamState``, ``MRState``
 (with its per-peer ``ClosureBuffer``) and messages (``Combo``,
 ``ClosureList``, ``StarMsg``) as well as this package's; the reverse builds
 this package's types on a device. A ``Config`` crosses by constructing both
-packages' dataclasses from the same keyword arguments.
+packages' dataclasses from the same keyword arguments. :func:`tree_map` and
+:func:`tree_leaves` walk the same trees within this package.
 """
 
 from __future__ import annotations
@@ -45,6 +46,25 @@ def to_numpy(obj, prefix: str = "") -> dict:
         else:
             out[key] = np.asarray(v)
     return out
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of dataclass / named-tuple trees of one
+    structure (``jax.tree_util.tree_map`` for this package's states and
+    messages)."""
+    t0 = trees[0]
+    if not _is_node(t0):
+        return fn(*trees)
+    return type(t0)(**{name: tree_map(fn, *(getattr(t, name) for t in trees))
+                       for name in _fields(t0)})
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in :func:`tree_map`'s order."""
+    if not _is_node(tree):
+        return [tree]
+    return [leaf for name in _fields(tree)
+            for leaf in tree_leaves(getattr(tree, name))]
 
 
 def _leaf(a: np.ndarray, device) -> torch.Tensor:

@@ -122,10 +122,12 @@ def _gauge_fix(H: torch.Tensor, b: torch.Tensor, free3: torch.Tensor):
 
 
 def _cholesky(H: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor; NaN (not an exception, not a host sync) when
-    ``H`` is not positive definite — ``cho_factor``'s behaviour."""
+    """Lower Cholesky factor of ``H`` (or of each matrix of a batch); NaN
+    (not an exception, not a host sync) where a matrix is not positive
+    definite — ``cho_factor``'s behaviour."""
     L, info = torch.linalg.cholesky_ex(H)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
 
 
 def solve_normal_equations(eq: NormalEq,

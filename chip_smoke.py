@@ -32,8 +32,10 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    poses against the card's;
 6. ``cg_mrslam``: the in-process multi-robot default deployment (2 robots,
    the same world and sensors, robot r on seed 7r, comm range 5 m,
-   ``MRConfig`` defaults) through ``MultiRobotSim`` on the card until both
-   robots stop keyframing at capacity - 4, with K1's and K2's counts set to
+   ``MRConfig`` defaults) through ``MultiRobotSim`` on the card for its
+   first ``MR_TICKS`` (400) ticks — the full route fills both graphs by tick
+   ~1000; cut for time, where every check below still holds with margin
+   (``tools/mr_depth_scan.py``) —, with K1's and K2's counts set to
    0 just before and read just after; checks foreign vertices on every
    robot, at least one accepted inter-robot closure and one spliced star,
    finite chi2, K2 launches = 4 per robot per exchange round (every one the
@@ -73,8 +75,9 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    and poses, finite chi2, ATE below the odometry-only ATE. (c) ``srslam
    --carmen`` on the route's first 400 ticks written with the port's
    ``carmen.write``: keyframes and a ``.g2o``. (d) ``cg_mrslam --nRobots 2
-   --ticks 300``: two ``.g2o`` files and two maps, an accepted inter-robot
-   closure, each graph holding the peer's namespaced keyframes;
+   --ticks 100`` (``CLI_MR_TICKS``, cut for time): two ``.g2o`` files and
+   two maps, an accepted inter-robot closure, each graph holding the peer's
+   namespaced keyframes;
 10. the per-process UDP deployment (``cg_mrslam --idRobot r``, in
    ``chiprun_out/udp/``): robot 1 as a subprocess (``python -m
    cg_mrslam_tpu_torch``), robot 0 through ``cli.main`` in this process once
@@ -120,7 +123,36 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    live vertices) then ``optimize_lm`` (15 iterations) of phase 3's final
    graph with its free poses perturbed (σ 0.3 m, 0.1 rad, seed 0): equal
    hop distances, tree poses within 1e-4, chi2 lower after LM on both, LM
-   poses within 1e-3.
+   poses within 1e-3;
+12. the parallel layer, live ingestion and the viz export (files in
+   ``chiprun_out/phase12/``): (a) ``maps/viz.py``'s ``trajectory``,
+   ``laser_map_points``, ``map_to_odom`` and ``render_png`` on phase 3's
+   final state, on the card and on a CPU copy: outputs within 1e-5, the PGM
+   of the size its bounds give, at most 0.1% of its pixels different; (b)
+   the first ``STREAM_TICKS`` (400) ticks of phase 3's route sent by a
+   thread over localhost to a ``UdpJsonSource`` (one geometry header,
+   absolute odometry dead-reckoned in float64, the route's scans; at most
+   16 datagrams in flight) and ``run_slam_on_source`` on the card: the
+   datagrams received equal those sent, the keyframes phase 3's over those
+   ticks, their poses within 1e-3 of phase 3's; (c) ``FleetSim`` at phase
+   6's full width over phase 6's scans, up to ``FLEET_EXTRA_TICKS`` (30)
+   ticks past phase 6's first inter-robot closure, K1's and K2's counts set
+   to 0 just before and read just after: every round's tick and outcomes
+   equal to phase 6's through that closure, own-keyframe ATE within 0.05 m of
+   phase 6's at the last round, a spliced star, K1 = 3 per keyframe, K2 = 4
+   per robot per round, every one the pair, no probe; prints the buckets,
+   the condense bands and the round time p50/p99 beside phase 6's over the
+   same rounds; (d) ``sharded_optimize`` and ``sharded_optimize_pcg`` of 64
+   loop graphs (64 vertices, 128 edges) in one process over NCCL and in two
+   processes on ``cuda:0`` over gloo (NCCL refuses two ranks on one card):
+   poses within 5e-3 of the one-process solves of each graph, each solve
+   repeated bit for bit; (e) ``fleet_round_sharded`` on two gloo processes
+   on ``cuda:0`` from phase 6's states before its first inter-robot closure
+   (saved under ``chiprun_out/phase12/``) against ``fleet_round`` in this
+   process: integer leaves equal, floats within ``tests/test_fleet.py``'s
+   bar; and the merged 1024 fixture's chain-preconditioned PCG solve (5 GN
+   iterations of 96 CG) on the card, chi2 within 1% of the CPU's every
+   iteration. Every process group is joined with a 120 s timeout.
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -196,6 +228,19 @@ N_MATCHES = 12        # (e): accepted global searches also gated on the CPU
 STAR_CAP = 8          # (f): at most this many optimal-gauge candidates
 LM_ITERS = 15
 PERTURB = (0.3, 0.1)  # (g): σ of the free poses' noise, m and rad
+# phase 6: the two-robot deployment's ticks (its graphs fill by tick ~1000)
+MR_TICKS = 400
+# phase 9 (d): the ticks of the command line's two-robot run (its first
+# inter-robot closure comes at tick 27)
+CLI_MR_TICKS = 100
+# phase 12: the stream's ticks, FleetSim's ticks past phase 6's first
+# inter-robot closure, the sharded solves' batch (graphs, vertices, edges)
+PHASE12_DIR = ROOT / "chiprun_out" / "phase12"
+STREAM_TICKS = 400
+FLEET_EXTRA_TICKS = 30
+SHARD_BATCH = (64, 64, 128)
+GROUP_TIMEOUT = 120.0
+MERGED = ROOT / "tests" / "fixtures" / "merged_2robot_1024.npz"
 
 
 def log(*a):
@@ -584,13 +629,18 @@ class TimedBand:
         return out
 
 
-def run_mr(device, max_ticks=None, capture=None, matches=None):
+def run_mr(device, max_ticks=None, capture=None, matches=None,
+           before_closure=None):
     """The ``cg_mrslam`` deployment through ``MultiRobotSim`` on
     ``device``. Records, per exchange round, the tick and each robot's
     outcomes and own poses, and the keyframe ticks of each robot; with
     ``matches`` (a :class:`MatchCapture`), the inputs of accepted global
-    searches and of the first star built. Returns ``(sim, times, log)``:
-    ``times`` maps each timed step to its times in ms."""
+    searches and of the first star built; with ``before_closure`` (a
+    dict), the robots' states going into the first round in which a robot
+    accepts an inter-robot closure (host copies, taken outside the round's
+    clock) and that round's tick. Returns ``(sim, times, log)``: ``times``
+    maps each timed step to its times in ms."""
+    from cg_mrslam_tpu_torch import convert
     from cg_mrslam_tpu_torch.mr import mrslam as MR
     from cg_mrslam_tpu_torch.mr.sim import MultiRobotSim
     from cg_mrslam_tpu_torch.sim import world as W
@@ -616,7 +666,14 @@ def run_mr(device, max_ticks=None, capture=None, matches=None):
         return timers["keyframe"](r, t)
 
     def on_exchange(t, modality="sim"):
+        closing = before_closure is not None and "states" not in before_closure
+        if closing:
+            pre = [convert.to_numpy(st) for st in sim.states]
         timers["exchange_round"](t, modality)
+        if closing and any(o["inter_closures"] for o in
+                           (outcomes(st) for st in sim.states)):
+            before_closure.update(states=pre, tick=t,
+                                  conn=sim.connectivity(t, modality))
         if capture is not None and capture.armed:
             capture.settle(len(log["rounds"]))
         if matches is not None:
@@ -855,7 +912,7 @@ def phase_cli(cfg, traj, fov, slam, kf_t) -> None:
 
     # (d) two robots in one process
     out, _ = run_cli("cg_mrslam", "--nRobots", "2", "--modality", "sim",
-                     "--ticks", "300", "-o", "mr")
+                     "--ticks", str(CLI_MR_TICKS), "-o", "mr")
     accepted = [int(line.rsplit("=", 1)[1]) for line in out.splitlines()
                 if line.startswith("robot ") and "accepted=" in line]
     assert len(accepted) == 2 and sum(accepted) >= 1, out[-2000:]
@@ -1434,6 +1491,476 @@ def phase_matcher(slam, cfg, matches, sim, mlog, probes, ghz, udp):
     return records, probe_records
 
 
+# ------------------------------------------------------------------ phase 12
+
+
+def flat_cmp(a: dict, b: dict, atol=1e-3):
+    """``tests/test_fleet.py:_flat_cmp``'s bar on two ``convert.to_numpy``
+    dicts: integer and bool leaves equal, float leaves within ``atol`` +
+    1e-5 of the leaf's largest magnitude. Returns the largest float
+    difference."""
+    assert a.keys() == b.keys(), sorted(set(a) ^ set(b))
+    worst = 0.0
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if y.dtype == bool or np.issubdtype(y.dtype, np.integer):
+            np.testing.assert_array_equal(x, y, err_msg=k)
+            continue
+        scale = float(np.abs(y).max()) if y.size else 0.0
+        np.testing.assert_allclose(x, y, rtol=0, atol=atol + 1e-5 * scale,
+                                   err_msg=k)
+        if y.size:
+            worst = max(worst, float(np.abs(x.astype(np.float64) - y).max()))
+    return worst
+
+
+def phase_viz(slam) -> None:
+    """(a) The four exports of ``maps/viz.py`` on phase 3's final state, on
+    the card and on a CPU copy."""
+    from cg_mrslam_tpu_torch import convert
+    from cg_mrslam_tpu_torch.maps import viz
+
+    PHASE12_DIR.mkdir(parents=True, exist_ok=True)
+    st = slam.state
+    cpu = convert.state_from_numpy(convert.state_to_numpy(st), "cpu")
+    ms = {}
+    out = {}
+    for name, dev_state, device in (("card", st, "cuda"), ("cpu", cpu, "cpu")):
+        cuda = device == "cuda"
+        tr, s1 = timed_call(lambda: viz.trajectory(dev_state), cuda)
+        pts, s2 = timed_call(lambda: viz.laser_map_points(dev_state), cuda)
+        corr, s3 = timed_call(lambda: viz.map_to_odom(
+            tr[-1], slam.infos[-1].pose + np.float32([0.3, -0.2, 0.1]),
+            device=device), cuda)
+        path = PHASE12_DIR / f"map-{name}.pgm"
+        _, s4 = timed_call(lambda: viz.render_png(str(path), dev_state),
+                           cuda)
+        out[name] = (tr, pts, corr, path.read_bytes())
+        ms[name] = [1e3 * x for x in (s1, s2, s3, s4)]
+    tr, pts, corr, pgm = out["card"]
+    tr_c, pts_c, corr_c, pgm_c = out["cpu"]
+    np.testing.assert_array_equal(tr, tr_c)
+    assert len(tr) == len(slam.infos) + 1, (len(tr), len(slam.infos))
+    assert pts.shape == pts_c.shape and len(pts) > 1000, pts.shape
+    np.testing.assert_allclose(pts, pts_c, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(corr, corr_c, rtol=0, atol=1e-5)
+    # the size its bounds give (laser map at stride 1 and every vertex,
+    # 2 m of padding, 0.05 m a pixel)
+    allp = np.concatenate([viz.trajectory(cpu, own_only=False)[:, :2],
+                           viz.laser_map_points(cpu, stride=1)])
+    lo, hi = allp.min(0) - 2.0, allp.max(0) + 2.0
+    w, h = (int(np.ceil((hi[k] - lo[k]) / 0.05)) for k in (0, 1))
+    head = b"P5\n%d %d\n255\n" % (w, h)
+    assert pgm.startswith(head) and len(pgm) == len(head) + w * h, pgm[:20]
+    diff = float(np.mean(np.frombuffer(pgm[len(head):], np.uint8)
+                         != np.frombuffer(pgm_c[len(head):], np.uint8)))
+    assert diff <= 1e-3, diff
+    names = ("trajectory", "laser_map_points", "map_to_odom", "render_png")
+    log("viz: card / CPU ms: " + ", ".join(
+        f"{n} {a:.2f} / {b:.2f}" for n, a, b in zip(names, ms["card"],
+                                                   ms["cpu"]))
+        + f"; {len(tr)} poses, {len(pts)} map points (stride 10), PGM "
+        f"{w} x {h}, pixels differing card/CPU {diff:.2e}")
+
+
+class Recorded:
+    """A ``SensorSource`` around a ``UdpJsonSource``: keeps every parsed
+    datagram, and releases ``window`` once for every datagram it reads, so
+    that the sender never has more than the window in flight (the socket's
+    buffer never overflows); ``wait_s`` sums the seconds ``read`` spent
+    producing its pairs (receiving and parsing), ``last`` is the host clock
+    at the last datagram. After ``open`` the socket waits ``read_timeout``
+    seconds for a datagram: the stream ends at the first wait that long."""
+
+    def __init__(self, src, window, read_timeout):
+        self.src, self.window = src, window
+        self.read_timeout = read_timeout
+        self.packets = []
+        self.wait_s = 0.0
+        self.last = None
+        read = src._next_packet
+
+        def counted():
+            pkt = read()
+            if pkt is not None:
+                self.last = time.perf_counter()
+                self.packets.append(pkt)
+                window.release()
+            return pkt
+
+        src._next_packet = counted
+
+    def open(self):
+        out = self.src.open()
+        self.src._sock.settimeout(self.read_timeout)
+        return out
+
+    def read(self):
+        it = self.src.read()
+        while True:
+            t0 = time.perf_counter()
+            pair = next(it, None)
+            if pair is None:
+                return
+            self.wait_s += time.perf_counter() - t0
+            yield pair
+
+
+def phase_stream(cfg, traj, fov, infos, kf_t) -> None:
+    """(b) The first ``STREAM_TICKS`` ticks of phase 3's route over
+    localhost to a ``UdpJsonSource`` (one geometry header, absolute
+    odometry dead-reckoned in float64, the route's scans);
+    ``run_slam_on_source`` on the card."""
+    import json
+    import socket
+    import threading
+
+    from cg_mrslam_tpu_torch.io import stream as ST
+
+    beams = traj.ranges.shape[1]
+    odom = [np.asarray(traj.gt[0], np.float64)]
+    for rel in traj.rel_odom[:STREAM_TICKS - 1]:
+        a = odom[-1]
+        c, s = np.cos(a[2]), np.sin(a[2])
+        odom.append(np.array([a[0] + c * rel[0] - s * rel[1],
+                              a[1] + s * rel[0] + c * rel[1],
+                              (a[2] + rel[2] + np.pi) % (2 * np.pi) - np.pi]))
+    sent = [{"geometry": {"beams": beams, "first_beam_angle": -fov / 2,
+                          "angular_step": fov / beams, "max_range": 10.0}}]
+    sent += [{"odom": o.tolist(), "ranges": traj.ranges[t].tolist()}
+             for t, o in enumerate(odom)]
+    port = free_base_port(1, start=47000) + 1
+    window = threading.Semaphore(16)
+    src = Recorded(ST.UdpJsonSource(port, host="127.0.0.1", timeout=30.0),
+                   window, read_timeout=3.0)
+
+    def sender():
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+            for pkt in sent:
+                window.acquire()
+                tx.sendto(json.dumps(pkt).encode(), ("127.0.0.1", port))
+
+    th = threading.Thread(target=sender, daemon=True)
+    th.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        slam = ST.run_slam_on_source(src, cfg=cfg, device="cuda")
+    finally:
+        src.src.close()
+    wall = src.last - t0       # to the last datagram: not the final wait
+    th.join(30.0)
+    assert not th.is_alive()
+    assert src.packets == sent, (len(src.packets), len(sent))
+    n = int(np.sum((kf_t > 0) & (kf_t < STREAM_TICKS)))
+    assert len(slam.infos) == n, (len(slam.infos), n)
+    d = wrap_angle(np.stack([i.pose for i in slam.infos])
+                   - np.stack([i.pose for i in infos[:n]]))
+    assert np.abs(d).max() <= 1e-3, np.abs(d).max()
+    kf_ms = 1e3 * np.asarray(slam.metrics.values("keyframe_latency"))
+    log(f"stream: {len(sent)} datagrams received as sent, {n} keyframes "
+        f"(phase 3: {n} over ticks 1..{STREAM_TICKS - 1}), poses within "
+        f"{np.abs(d).max():.3g} of phase 3's; {wall:.2f} s, "
+        f"{1e3 * wall / n:.1f} ms a keyframe (ingestion included): the "
+        f"keyframe steps {percentiles(kf_ms)}, total {kf_ms.sum() / 1e3:.2f}"
+        f" s; reading the datagrams {src.wait_s:.2f} s")
+
+
+def round_ms(times, mlog, n_rounds: int) -> list:
+    """Phase 6's time of each of its first ``n_rounds`` rounds: the
+    keyframes of the round's tick and the exchange (host clock,
+    synchronized), in ms."""
+    kf = iter(times["keyframe"])
+    out = []
+    for k in range(n_rounds):
+        t = mlog["rounds"][k][0]
+        steps = sum(t in ticks for ticks in mlog["kf_ticks"])
+        out.append(sum(next(kf) for _ in range(steps))
+                   + times["exchange_round"][k])
+    return out
+
+
+def phase_fleet(sim, mlog, times, first: int, records) -> None:
+    """(c) ``FleetSim`` at phase 6's full width over phase 6's scans, up to
+    ``FLEET_EXTRA_TICKS`` past its first inter-robot closure."""
+    import cg_mrslam_tpu_torch.parallel.fleet_sim as FS
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.parallel import fleet as F
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    cfg = deployment_config(2)
+    t_first = mlog["rounds"][first][0]
+    fs = FS.FleetSim(cfg, None, beams=360, max_range=10.0, device="cuda",
+                     trajectories=sim.trajs)
+    calls, ticks = [], []
+    real = FS.fleet_keyframe_round
+
+    def recording(states, do, ests, ranges, conn, cfg_, nb, eb):
+        out = real(states, do, ests, ranges, conn, cfg_, nb, eb)
+        calls.append((nb, eb, out[0]))
+        return out
+
+    conn_of = fs._connectivity
+
+    def at_tick(t):
+        ticks.append(t)
+        return conn_of(t)
+
+    fs._connectivity = at_tick
+    FS.fleet_keyframe_round = recording
+    for k in (K.SCORE_VOLUME, K.SCORE_VOLUME_STRIDED, K.PROBE_NO_GATHER,
+              K.PROBE_CONST_CELLS):
+        k.launches = 0
+        k.launches_by_shape.clear()
+    gn.BAND_CALLS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fs.run(max_ticks=t_first + FLEET_EXTRA_TICKS + 1)
+    finally:
+        FS.fleet_keyframe_round = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = K.SCORE_VOLUME.launches, K.SCORE_VOLUME_STRIDED.launches
+    k1_by = dict(K.SCORE_VOLUME.launches_by_shape)
+    k2_by = dict(K.SCORE_VOLUME_STRIDED.launches_by_shape)
+    probes = K.PROBE_NO_GATHER.launches + K.PROBE_CONST_CELLS.launches
+    bands = dict(gn.BAND_CALLS)
+    n_rounds = len(calls)
+    n_kf = sum(len(g) - 1 for g in fs.kf_gt)
+    assert len(ticks) == n_rounds > first + 1, (len(ticks), first)
+    # up to and including the first inter-robot closure every round's
+    # outcomes are phase 6's (after it, the bucket's condense band may
+    # differ from phase 6's at capacity, and a near tie may flip)
+    for k, ((nb, eb, states), t) in enumerate(zip(calls[:first + 1],
+                                                  ticks)):
+        assert t == mlog["rounds"][k][0], (k, t, mlog["rounds"][k][0])
+        got = [outcomes(st) for st in F.unstack_states(states, 2)]
+        assert got == mlog["rounds"][k][1], (k, got, mlog["rounds"][k][1])
+    final = F.unstack_states(fs.states, 2)
+    t_last = ticks[-1]
+    k6 = max(k for k, r in enumerate(mlog["rounds"]) if r[0] <= t_last)
+    ates = []
+    for r, st in enumerate(final):
+        a_f = ate(own_poses(st), np.asarray(fs.kf_gt[r]))
+        kt = [t for t in mlog["kf_ticks"][r] if t <= mlog["rounds"][k6][0]]
+        a_6 = ate(mlog["rounds"][k6][2][r], sim.trajs[r].gt[kt])
+        assert abs(a_f - a_6) < 0.05, (r, a_f, a_6)
+        ates.append((a_f, a_6))
+    outs = [outcomes(st) for st in final]
+    assert sum(o["star_edges"] for o in outs) >= 1, outs
+    assert k1 == 3 * n_kf, (k1, n_kf)
+    assert k2 == 4 * fs.R * n_rounds, (k2, n_rounds)
+    assert all(k[1] == 2 and len(k) == 7 for k in k2_by), k2_by
+    assert probes == 0, "a probe ran on the fleet path"
+    for rec in records:      # K2's records carry their stride
+        strided = rec.get("stride") is not None
+        key = tuple(rec["shape"]) + ((rec["stride"],) * 2 if strided else ())
+        rec["launches_fleet_sim"] = (k2_by if strided else k1_by).get(key, 0)
+    fleet_ms = [1e3 * x for x in fs.round_latencies]
+    mr_ms = round_ms(times, mlog, n_rounds)
+    buckets = collections.Counter((nb, eb) for nb, eb, _ in calls)
+    log(f"fleet: {n_rounds} rounds (ticks {ticks[0]}..{t_last}; phase 6's "
+        f"first inter-robot closure at round {first}, tick {t_first}), "
+        f"{n_kf} keyframes in {wall:.2f} s; outcomes equal to phase 6's "
+        f"through round {first}; final {outs}; own-keyframe ATE FleetSim / "
+        f"phase 6 at tick {t_last}: "
+        + ", ".join(f"robot {r} {a:.4f} / {b:.4f} m"
+                    for r, (a, b) in enumerate(ates)))
+    log(f"fleet: K1 launches {k1} ({k1_by}), K2 {k2} ({k2_by}), probes 0; "
+        f"buckets (nb, eb) {dict(buckets)}; condense bands {bands}")
+    log(f"fleet: round time (host clock, synchronized) FleetSim "
+        f"{percentiles(fleet_ms)}; phase 6 over the same rounds (keyframes "
+        f"+ exchange) {percentiles(mr_ms)}")
+
+
+def _sharded_worker(rank, world, backend, shard):
+    """One rank of (d): the edge-sharded dense and matrix-free solves of
+    ``SHARD_BATCH``, each twice, on the card; the gathered poses and the
+    seconds of each call."""
+    from cg_mrslam_tpu_torch.parallel import sharding as SH
+    from cg_mrslam_tpu_torch.sim.graphs import build_batch
+
+    mesh = SH.make_mesh(world, shard=shard, backend=backend)
+    gs = SH.shard_batch(build_batch(*SHARD_BATCH, device="cuda"), mesh)
+    out = {}
+    for name, solve in (("dense", SH.sharded_optimize),
+                        ("pcg", SH.sharded_optimize_pcg)):
+        for rep in range(2):
+            poses, sec = timed_call(lambda: solve(gs, mesh), True)
+            out[f"{name}{rep}"] = SH.gather_poses(poses, mesh).cpu().numpy()
+            out[f"{name}{rep}_s"] = sec
+    return out
+
+
+def _fleet_worker(rank, world, states, conn, cfg):
+    """One rank of (e): ``fleet_round_sharded`` of its robot on the card;
+    its block as numpy dicts."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from cg_mrslam_tpu_torch import convert
+    from cg_mrslam_tpu_torch.parallel import fleet as F
+
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("robots",))
+    loc = len(states) // world
+    mine = [convert.mr_state_from_numpy(s, "cuda")
+            for s in states[rank * loc:(rank + 1) * loc]]
+    out, sec = timed_call(lambda: F.fleet_round_sharded(
+        F.stack_states(mine), conn, cfg, mesh), True)
+    return [convert.to_numpy(st) for st in F.unstack_states(out, loc)], sec
+
+
+def phase_sharded() -> None:
+    """(d) The edge-sharded solves on the card: one process over NCCL, two
+    processes on ``cuda:0`` over gloo; against the one-process solves of
+    each graph (``gauss_newton.optimize``, ``pcg.optimize_pcg``)."""
+    from cg_mrslam_tpu_torch.core.graph import PoseGraph
+    from cg_mrslam_tpu_torch.parallel.launch import run_group
+    from cg_mrslam_tpu_torch.sim.graphs import build_batch
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+    from cg_mrslam_tpu_torch.solver import pcg as PCG
+
+    g = build_batch(*SHARD_BATCH, device="cuda")
+    one = {"dense": [], "pcg": []}
+    t0 = time.perf_counter()
+    for b in range(g.poses.shape[0]):
+        gb = PoseGraph(**{f: getattr(g, f)[b] for f in g.__dataclass_fields__})
+        one["dense"].append(gn.optimize(gb, iterations=5).poses)
+        one["pcg"].append(PCG.optimize_pcg(gb, iterations=5).poses)
+    one = {k: torch.stack(v).cpu().numpy() for k, v in one.items()}
+    log(f"sharded: the one-process solves of {SHARD_BATCH[0]} graphs, one "
+        f"at a time, in {time.perf_counter() - t0:.2f} s")
+    for tag, world, backend in (("NCCL, 1 process", 1, "nccl"),
+                                ("gloo, 2 processes on cuda:0", 2, "gloo")):
+        t0 = time.perf_counter()
+        res = run_group(_sharded_worker, world, args=(backend, world),
+                        workdir=PHASE12_DIR / f"group-{backend}",
+                        backend=backend, cuda_index=0,
+                        timeout=GROUP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        r0 = res[0]
+        errs = {}
+        for name in ("dense", "pcg"):
+            for r in res:
+                np.testing.assert_array_equal(r[f"{name}0"], r0[f"{name}0"])
+            np.testing.assert_array_equal(r0[f"{name}1"], r0[f"{name}0"])
+            d = wrap_angle(r0[f"{name}0"] - one[name])
+            errs[name] = float(np.abs(d).max())
+            assert errs[name] < 5e-3, (tag, name, errs[name])
+        log(f"sharded ({tag}; {SHARD_BATCH[0]} graphs of {SHARD_BATCH[1]} "
+            f"vertices, {SHARD_BATCH[2]} edges in {world} shard(s)): GN x5 "
+            f"{1e3 * r0['dense1_s']:.1f} ms (first call "
+            f"{1e3 * r0['dense0_s']:.1f} ms), PCG x5 (64 CG) "
+            f"{1e3 * r0['pcg1_s']:.1f} ms; repeats bit-equal; largest "
+            f"difference to the one-process solves: dense {errs['dense']:.2e}"
+            f", PCG {errs['pcg']:.2e}; group wall {wall:.1f} s")
+
+
+def phase_fleet_sharded(before) -> None:
+    """(e) ``fleet_round_sharded`` on two processes on ``cuda:0`` over gloo,
+    from phase 6's states before its first inter-robot closure, against
+    ``fleet_round`` in this process."""
+    from cg_mrslam_tpu_torch import convert
+    from cg_mrslam_tpu_torch.parallel import fleet as F
+    from cg_mrslam_tpu_torch.parallel.launch import run_group
+
+    cfg = deployment_config(2)
+    path = PHASE12_DIR / "states_before_first_closure.npz"
+    np.savez(path, conn=before["conn"], **{
+        f"r{r}.{k}": v for r, st in enumerate(before["states"])
+        for k, v in st.items()})
+    z = dict(np.load(path))
+    conn = z.pop("conn")
+    states = [{k.split(".", 1)[1]: v for k, v in z.items()
+               if k.startswith(f"r{r}.")} for r in range(2)]
+    want, sec = timed_call(lambda: F.fleet_round(F.stack_states(
+        [convert.mr_state_from_numpy(s, "cuda") for s in states]), conn,
+        cfg), True)
+    t0 = time.perf_counter()
+    res = run_group(_fleet_worker, 2, args=(states, conn, cfg),
+                    workdir=PHASE12_DIR / "group-fleet", backend="gloo",
+                    cuda_index=0, timeout=GROUP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    for r, w in enumerate(F.unstack_states(want, 2)):
+        worst = max(worst, flat_cmp(res[r][0][0], convert.to_numpy(w)))
+    outs = [outcomes(st) for st in F.unstack_states(want, 2)]
+    assert any(o["inter_closures"] for o in outs), outs
+    log(f"fleet sharded: the round of tick {before['tick']} on 2 gloo "
+        f"processes on cuda:0 equals fleet_round in process (ints equal, "
+        f"largest float difference {worst:.3g}); outcomes {outs}; "
+        f"fleet_round {1e3 * sec:.1f} ms, sharded round "
+        f"{1e3 * max(r[1] for r in res):.1f} ms, group wall {wall:.1f} s")
+
+
+def merged_graph(device):
+    """``tests/fixtures/merged_2robot_1024.npz`` as ``test_merged_parity.py``
+    loads it (edge capacity cut to the live edges rounded up to 128), with
+    its (owner, keyframe) order."""
+    from cg_mrslam_tpu_torch.core.graph import PoseGraph
+    from cg_mrslam_tpu_torch.solver.chain import chain_order
+
+    z = dict(np.load(MERGED))
+    e_cap = int(-(-int(z["n_edges"]) // 128) * 128)
+    f32 = {"poses", "e_z", "e_info"}
+    kw = {}
+    for f in PoseGraph.__dataclass_fields__:
+        a = z[f][:e_cap] if f.startswith("e_") or f == "emask" else z[f]
+        kw[f] = torch.as_tensor(np.asarray(
+            a, np.float32 if f in f32 else None), device=device)
+        if kw[f].dtype == torch.int64:
+            kw[f] = kw[f].to(torch.int32)
+    g = PoseGraph(**kw)
+    order = chain_order(*(torch.as_tensor(z[k], device=device).to(
+        torch.int32 if k != "vmask" else torch.bool)
+        for k in ("v_owner", "v_remote", "vmask")))
+    return g, order
+
+
+def phase_merged() -> None:
+    """The merged 1024 fixture's chain-preconditioned PCG solve (5 GN
+    iterations of 96 CG) on the card against the CPU's, per iteration."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+    from cg_mrslam_tpu_torch.solver.pcg import optimize_pcg
+
+    chis, secs = {}, []
+    for dev in ("cpu", "cuda"):
+        g, order = merged_graph(dev)
+        if dev == "cuda":
+            band = int(gn.auto_backend(g, order=order))
+        chis[dev] = [float(chi2(g))]
+        for _ in range(5):
+            g, sec = timed_call(lambda: optimize_pcg(
+                g, iterations=1, cg_iters=96, order=order), dev == "cuda")
+            chis[dev].append(float(chi2(g)))
+            if dev == "cuda":
+                secs.append(sec)
+    for a, b in zip(chis["cuda"], chis["cpu"]):
+        assert abs(a - b) <= 0.01 * b, (chis["cuda"], chis["cpu"])
+    assert abs(chis["cuda"][-1] - 12.796) < 0.13, chis["cuda"]
+    log(f"merged 1024: chi2 per iteration card {chis['cuda']}, CPU "
+        f"{chis['cpu']} (within 1%); band {band} (0 dense, 1 chain, 2 PCG; "
+        f"optimize_auto's choice at capacity {g.poses.shape[0]}); PCG "
+        f"iteration on the card {', '.join(f'{1e3 * s:.1f}' for s in secs)}"
+        f" ms")
+
+
+def phase_parallel(slam, cfg, traj, fov, infos, kf_t, sim, mlog, times,
+                   first, before, records) -> None:
+    """Phase 12 (see the module docstring)."""
+    for name, fn in (
+            ("viz", lambda: phase_viz(slam)),
+            ("stream", lambda: phase_stream(cfg, traj, fov, infos, kf_t)),
+            ("fleet", lambda: phase_fleet(sim, mlog, times, first, records)),
+            ("sharded", phase_sharded),
+            ("fleet sharded", lambda: phase_fleet_sharded(before)),
+            ("merged", phase_merged)):
+        t0 = time.perf_counter()
+        fn()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1553,7 +2080,9 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     matches = MatchCapture()
-    sim, times, mlog = run_mr("cuda", capture=capture2, matches=matches)
+    before = {}
+    sim, times, mlog = run_mr("cuda", max_ticks=MR_TICKS, capture=capture2,
+                              matches=matches, before_closure=before)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_mr = K.SCORE_VOLUME.launches
@@ -1688,6 +2217,13 @@ def main() -> int:
     records += recs
     probe_records += probe_recs
     log(f"matcher: phase 11 in {time.perf_counter() - t0:.1f} s")
+
+    # --- 12. the parallel layer, live ingestion and the viz export ---
+    t0 = time.perf_counter()
+    assert before["tick"] == mlog["rounds"][first][0], (before["tick"], first)
+    phase_parallel(slam, cfg, traj, fov, slam.infos, kf_t, sim, mlog, times,
+                   first, before, records)
+    log(f"parallel: phase 12 in {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": records + probe_records}), flush=True)

@@ -997,3 +997,87 @@ def test_cells_on_the_card_equal_the_cpus(dev):
     ang = torch.linspace(-4.0, 4.0, 100_003)
     for g, w in zip(cos_sin(ang.to(dev)), cos_sin(ang)):
         assert torch.equal(g.cpu(), w)
+
+
+# ------------------------------------------------ the parallel layer
+
+
+def test_sharded_solves_repeat_bit_for_bit(dev, tmp_path):
+    """The edge-sharded dense and matrix-free solves of 64 loop graphs,
+    one process on an NCCL mesh: two runs of each give the same bits (the
+    assembly sums in a fixed order)."""
+    from cg_mrslam_tpu_torch.parallel.launch import run_group
+    import torch_dist_workers as workers
+
+    (res,) = run_group(workers.card_sharded_repeats, 1, workdir=tmp_path,
+                       backend="nccl", cuda_index=0, timeout=120.0)
+    dense_a, dense_b, pcg_a, pcg_b = res
+    assert np.isfinite(dense_a).all() and np.isfinite(pcg_a).all()
+    np.testing.assert_array_equal(dense_a, dense_b)
+    np.testing.assert_array_equal(pcg_a, pcg_b)
+
+
+def _flat_close(a: dict, b: dict, atol=1e-4, rel=1e-6):
+    """Integer and bool leaves equal; float leaves within ``atol`` plus
+    ``rel`` of the leaf's largest magnitude (a star's information is
+    ~1e4, where one float32 step is ~1e-3)."""
+    assert a.keys() == b.keys()
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if y.dtype == bool or np.issubdtype(y.dtype, np.integer):
+            np.testing.assert_array_equal(x, y, err_msg=k)
+        else:
+            scale = float(np.abs(y).max()) if y.size else 0.0
+            np.testing.assert_allclose(x, y, rtol=0, atol=atol + rel * scale,
+                                       err_msg=k)
+
+
+def test_fleet_keyframe_round_on_the_card_matches_cpu(dev, monkeypatch):
+    """One fleet round (both robots' keyframe steps and the exchange) from
+    a state carried across from a card run of ``FleetSim``: on the card
+    and on the CPU, integer leaves equal and floats within 1e-4 (+ 1e-6 of
+    the leaf's scale)."""
+    from cg_mrslam_tpu_torch import convert
+    from cg_mrslam_tpu_torch.config import (Config, MatcherConfig, MRConfig,
+                                            SlamConfig)
+    from cg_mrslam_tpu_torch.parallel import fleet as F
+    from cg_mrslam_tpu_torch.parallel import fleet_sim as FS
+    from cg_mrslam_tpu_torch.sim import world as W
+
+    cfg = Config(
+        slam=SlamConfig(min_inliers=4, window_loop_closure=8),
+        mr=MRConfig(n_robots=2, min_inliers_mr=4, sim_comm_range=6.0,
+                    max_score_mr=0.2),
+        close_matcher=MatcherConfig(extent=16.0, resolution=0.05,
+                                    kernel_radius=0.2),
+        lc_matcher=MatcherConfig(extent=24.0, resolution=0.1,
+                                 kernel_radius=0.5),
+        max_vertices=96, max_edges=512)
+    calls = []
+    real = FS.fleet_keyframe_round
+
+    def recording(states, do, ests, ranges, conn, cfg_, nb, eb):
+        calls.append((convert.tree_map(lambda a: a.cpu(), states),
+                      np.array(do), ests.cpu(), ranges.cpu(), np.array(conn),
+                      nb, eb))
+        return real(states, do, ests, ranges, conn, cfg_, nb, eb)
+
+    monkeypatch.setattr(FS, "fleet_keyframe_round", recording)
+    fs = FS.FleetSim(cfg, W.hospital_world(16.0, 10.0, seed=2), beams=120,
+                     seed=11, n_loops=2, device="cuda")
+    fs.run(max_ticks=50)
+    monkeypatch.undo()
+    # the last round in which both robots stepped
+    states, do, ests, ranges, conn, nb, eb = next(
+        c for c in reversed(calls) if c[1].all())
+    assert conn.any()
+    out = {}
+    for d in ("cpu", "cuda"):
+        st = convert.tree_map(lambda a: a.to(d), states)
+        new, info = real(st, do, ests.to(d), ranges.to(d), conn, cfg, nb, eb)
+        out[d] = (convert.to_numpy(new), info.cpu().numpy())
+    _flat_close(out["cuda"][0], out["cpu"][0])
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=0,
+                               atol=1e-4 + 1e-6 * np.abs(out["cpu"][1]).max())
+    lvl = out["cuda"][0]["slam.graph.e_level"]
+    assert (lvl > 0).any()
