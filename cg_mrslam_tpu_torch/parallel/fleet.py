@@ -67,40 +67,25 @@ def _combo_phase(states: list, combos: dict, conn: np.ndarray,
     return out
 
 
-def _list_phase(states: list, lists: dict, conn: np.ndarray, gids) -> list:
-    """Robot ``gid`` consumes the closure lists ``lists[(src, gid)]`` in
-    sender order."""
+def _consume(states: list, msgs: dict, conn: np.ndarray, gids,
+             receive) -> list:
+    """Robot ``gid`` takes the messages ``msgs[(src, gid)]`` in sender
+    order through ``receive`` (``receive_closure_list`` or
+    ``receive_star``)."""
     out = []
     for st, gid in zip(states, gids):
         for src in range(conn.shape[1]):
             if conn[gid, src]:
-                st = MR.receive_closure_list(st, src, lists[(src, gid)], True)
+                st = receive(st, src, msgs[(src, gid)], True)
         out.append(st)
     return out
 
 
-def _star_phase(states: list, stars: dict, conn: np.ndarray, gids) -> list:
-    """Robot ``gid`` splices the condensed stars ``stars[(src, gid)]`` in
-    sender order."""
-    out = []
-    for st, gid in zip(states, gids):
-        for src in range(conn.shape[1]):
-            if conn[gid, src]:
-                st = MR.receive_star(st, src, stars[(src, gid)], True)
-        out.append(st)
-    return out
-
-
-def _build_lists(states: list, conn: np.ndarray, gids, cap: int) -> dict:
-    """``(src, dst) → ClosureList`` for every consumed pair whose sender
-    ``src`` is in ``gids``."""
-    return {(src, dst): MR.build_closure_list(st, dst, cap=cap)
-            for st, src in zip(states, gids)
-            for dst in range(conn.shape[0]) if conn[dst, src]}
-
-
-def _build_stars(states: list, conn: np.ndarray, gids, cap: int) -> dict:
-    return {(src, dst): MR.build_star(st, dst, cap=cap)
+def _build(states: list, conn: np.ndarray, gids, build, cap: int) -> dict:
+    """``(src, dst) → build(state of src, dst, cap)`` for every consumed
+    pair whose sender ``src`` is in ``gids`` (``build_closure_list`` or
+    ``build_star``)."""
+    return {(src, dst): build(st, dst, cap=cap)
             for st, src in zip(states, gids)
             for dst in range(conn.shape[0]) if conn[dst, src]}
 
@@ -112,12 +97,11 @@ def exchange(states: list, conn: np.ndarray, cfg: Config) -> list:
     combos = {s: MR.build_combo(st) for s, st in enumerate(states)
               if conn[:, s].any()}
     states = _combo_phase(states, combos, conn, cfg, gids)
-    states = _list_phase(
-        states, _build_lists(states, conn, gids, cfg.mr.closure_list_cap),
-        conn, gids)
-    return _star_phase(
-        states, _build_stars(states, conn, gids, cfg.mr.star_edges_cap),
-        conn, gids)
+    lists = _build(states, conn, gids, MR.build_closure_list,
+                   cfg.mr.closure_list_cap)
+    states = _consume(states, lists, conn, gids, MR.receive_closure_list)
+    stars = _build(states, conn, gids, MR.build_star, cfg.mr.star_edges_cap)
+    return _consume(states, stars, conn, gids, MR.receive_star)
 
 
 def fleet_round(states: MR.MRState, conn, cfg: Config) -> MR.MRState:
@@ -228,12 +212,13 @@ def fleet_round_sharded(states: MR.MRState, conn, cfg: Config,
 
     # phase 2: closure lists built from the POST-vote state
     cap = cfg.mr.closure_list_cap
-    lists = _gather_pairs(_build_lists(local, conn, gids, cap),
+    lists = _gather_pairs(_build(local, conn, gids, MR.build_closure_list,
+                                 cap),
                           _blank_list(local[0], cap), gids, rr, group)
-    local = _list_phase(local, lists, conn, gids)
+    local = _consume(local, lists, conn, gids, MR.receive_closure_list)
 
     # phase 3: stars built from the POST-list state
     cap = cfg.mr.star_edges_cap
-    stars = _gather_pairs(_build_stars(local, conn, gids, cap),
+    stars = _gather_pairs(_build(local, conn, gids, MR.build_star, cap),
                           _blank_star(local[0], cap), gids, rr, group)
-    return stack_states(_star_phase(local, stars, conn, gids))
+    return stack_states(_consume(local, stars, conn, gids, MR.receive_star))

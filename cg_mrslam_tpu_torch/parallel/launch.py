@@ -5,9 +5,10 @@ function in every process.
 per mesh position (``parallel.sharding``, ``parallel.fleet``). This module
 does that with ``spawn``ed processes that rendezvous through a
 ``FileStore`` in a directory of the caller's (no TCP port to pick). Each
-process returns its result through a file in that directory; a group that
-does not finish within its timeout is killed and the call raises, so a
-hung collective cannot hold its caller.
+process returns its result through a file in that directory. When a rank
+fails, or the group does not finish within its timeout, the rest of the
+group is killed and the call raises with the ranks' tracebacks, so a hung
+collective cannot hold its caller.
 
     results = run_group(worker, 4, args=(x,), workdir=tmp, backend="gloo")
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import time
 import traceback
+from multiprocessing.connection import wait
 from pathlib import Path
 
 import torch
@@ -51,10 +53,10 @@ def run_group(target, world_size: int, args=(), workdir=None,
     """Run ``target(rank, world_size, *args)`` in ``world_size`` spawned
     processes joined in one process group on ``backend``; each process
     uses ``torch.set_num_threads(1)`` and, with ``cuda_index``, that card.
-    Returns the ranks' results in rank order. Raises ``TimeoutError``
-    (after killing the group) when it has not finished within ``timeout``
-    seconds, and ``RuntimeError`` with the tracebacks when a rank
-    failed."""
+    Returns the ranks' results in rank order. Raises ``RuntimeError`` with
+    the tracebacks as soon as a rank fails, and ``TimeoutError`` with any
+    tracebacks when the group has not finished within ``timeout`` seconds;
+    either way the group's remaining processes are killed first."""
     ctx = torch.multiprocessing.get_context("spawn")
     out = Path(workdir)
     out.mkdir(parents=True, exist_ok=True)
@@ -71,22 +73,31 @@ def run_group(target, world_size: int, args=(), workdir=None,
         p.start()
     deadline = time.monotonic() + timeout
     try:
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.0))
-        hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        if hung:
-            raise TimeoutError(f"process group of {world_size}: ranks {hung} "
-                               f"still running after {timeout} s")
+        while True:
+            codes = [p.exitcode for p in procs]
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed:           # its peers may wait on it in a collective
+                raise RuntimeError(f"process group of {world_size}: ranks "
+                                   f"{failed} failed\n" + _errors(out))
+            running = [p.sentinel for p, c in zip(procs, codes) if c is None]
+            if not running:
+                break
+            left = deadline - time.monotonic()
+            if left <= 0:
+                hung = [r for r, c in enumerate(codes) if c is None]
+                raise TimeoutError(f"process group of {world_size}: ranks "
+                                   f"{hung} still running after {timeout} s"
+                                   f"\n" + _errors(out))
+            wait(running, left)
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join(10.0)
-    errors = [(out / f"rank{r}.err").read_text() for r in range(world_size)
-              if (out / f"rank{r}.err").exists()]
-    bad = [r for r, p in enumerate(procs) if p.exitcode != 0]
-    if errors or bad:
-        raise RuntimeError(f"process group of {world_size}: ranks {bad} "
-                           f"failed\n" + "\n".join(errors))
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(world_size)]
+
+
+def _errors(out: Path) -> str:
+    """The tracebacks the ranks wrote to ``out``."""
+    return "\n".join(f.read_text() for f in sorted(out.glob("rank*.err")))

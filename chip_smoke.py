@@ -32,10 +32,8 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    poses against the card's;
 6. ``cg_mrslam``: the in-process multi-robot default deployment (2 robots,
    the same world and sensors, robot r on seed 7r, comm range 5 m,
-   ``MRConfig`` defaults) through ``MultiRobotSim`` on the card for its
-   first ``MR_TICKS`` (400) ticks — the full route fills both graphs by tick
-   ~1000; cut for time, where every check below still holds with margin
-   (``tools/mr_depth_scan.py``) —, with K1's and K2's counts set to
+   ``MRConfig`` defaults) through ``MultiRobotSim`` on the card until both
+   robots stop keyframing at capacity - 4, with K1's and K2's counts set to
    0 just before and read just after; checks foreign vertices on every
    robot, at least one accepted inter-robot closure and one spliced star,
    finite chi2, K2 launches = 4 per robot per exchange round (every one the
@@ -75,9 +73,8 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    and poses, finite chi2, ATE below the odometry-only ATE. (c) ``srslam
    --carmen`` on the route's first 400 ticks written with the port's
    ``carmen.write``: keyframes and a ``.g2o``. (d) ``cg_mrslam --nRobots 2
-   --ticks 100`` (``CLI_MR_TICKS``, cut for time): two ``.g2o`` files and
-   two maps, an accepted inter-robot closure, each graph holding the peer's
-   namespaced keyframes;
+   --ticks 300``: two ``.g2o`` files and two maps, an accepted inter-robot
+   closure, each graph holding the peer's namespaced keyframes;
 10. the per-process UDP deployment (``cg_mrslam --idRobot r``, in
    ``chiprun_out/udp/``): robot 1 as a subprocess (``python -m
    cg_mrslam_tpu_torch``), robot 0 through ``cli.main`` in this process once
@@ -145,8 +142,8 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    same rounds; (d) ``sharded_optimize`` and ``sharded_optimize_pcg`` of 64
    loop graphs (64 vertices, 128 edges) in one process over NCCL and in two
    processes on ``cuda:0`` over gloo (NCCL refuses two ranks on one card):
-   poses within 5e-3 of the one-process solves of each graph, each solve
-   repeated bit for bit; (e) ``fleet_round_sharded`` on two gloo processes
+   poses within 5e-3 of the one-process solves of each graph (on the CPU),
+   each solve repeated bit for bit; (e) ``fleet_round_sharded`` on two gloo processes
    on ``cuda:0`` from phase 6's states before its first inter-robot closure
    (saved under ``chiprun_out/phase12/``) against ``fleet_round`` in this
    process: integer leaves equal, floats within ``tests/test_fleet.py``'s
@@ -228,11 +225,6 @@ N_MATCHES = 12        # (e): accepted global searches also gated on the CPU
 STAR_CAP = 8          # (f): at most this many optimal-gauge candidates
 LM_ITERS = 15
 PERTURB = (0.3, 0.1)  # (g): σ of the free poses' noise, m and rad
-# phase 6: the two-robot deployment's ticks (its graphs fill by tick ~1000)
-MR_TICKS = 400
-# phase 9 (d): the ticks of the command line's two-robot run (its first
-# inter-robot closure comes at tick 27)
-CLI_MR_TICKS = 100
 # phase 12: the stream's ticks, FleetSim's ticks past phase 6's first
 # inter-robot closure, the sharded solves' batch (graphs, vertices, edges)
 PHASE12_DIR = ROOT / "chiprun_out" / "phase12"
@@ -912,7 +904,7 @@ def phase_cli(cfg, traj, fov, slam, kf_t) -> None:
 
     # (d) two robots in one process
     out, _ = run_cli("cg_mrslam", "--nRobots", "2", "--modality", "sim",
-                     "--ticks", str(CLI_MR_TICKS), "-o", "mr")
+                     "--ticks", "300", "-o", "mr")
     accepted = [int(line.rsplit("=", 1)[1]) for line in out.splitlines()
                 if line.startswith("robot ") and "accepted=" in line]
     assert len(accepted) == 2 and sum(accepted) >= 1, out[-2000:]
@@ -1813,23 +1805,24 @@ def _fleet_worker(rank, world, states, conn, cfg):
 def phase_sharded() -> None:
     """(d) The edge-sharded solves on the card: one process over NCCL, two
     processes on ``cuda:0`` over gloo; against the one-process solves of
-    each graph (``gauss_newton.optimize``, ``pcg.optimize_pcg``)."""
+    each graph (``gauss_newton.optimize``, ``pcg.optimize_pcg``) on the
+    CPU."""
     from cg_mrslam_tpu_torch.core.graph import PoseGraph
     from cg_mrslam_tpu_torch.parallel.launch import run_group
     from cg_mrslam_tpu_torch.sim.graphs import build_batch
     from cg_mrslam_tpu_torch.solver import gauss_newton as gn
     from cg_mrslam_tpu_torch.solver import pcg as PCG
 
-    g = build_batch(*SHARD_BATCH, device="cuda")
+    g = build_batch(*SHARD_BATCH, device="cpu")
     one = {"dense": [], "pcg": []}
     t0 = time.perf_counter()
     for b in range(g.poses.shape[0]):
         gb = PoseGraph(**{f: getattr(g, f)[b] for f in g.__dataclass_fields__})
         one["dense"].append(gn.optimize(gb, iterations=5).poses)
         one["pcg"].append(PCG.optimize_pcg(gb, iterations=5).poses)
-    one = {k: torch.stack(v).cpu().numpy() for k, v in one.items()}
+    one = {k: torch.stack(v).numpy() for k, v in one.items()}
     log(f"sharded: the one-process solves of {SHARD_BATCH[0]} graphs, one "
-        f"at a time, in {time.perf_counter() - t0:.2f} s")
+        f"at a time on the CPU, in {time.perf_counter() - t0:.2f} s")
     for tag, world, backend in (("NCCL, 1 process", 1, "nccl"),
                                 ("gloo, 2 processes on cuda:0", 2, "gloo")):
         t0 = time.perf_counter()
@@ -2081,8 +2074,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     matches = MatchCapture()
     before = {}
-    sim, times, mlog = run_mr("cuda", max_ticks=MR_TICKS, capture=capture2,
-                              matches=matches, before_closure=before)
+    sim, times, mlog = run_mr("cuda", capture=capture2, matches=matches,
+                              before_closure=before)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_mr = K.SCORE_VOLUME.launches

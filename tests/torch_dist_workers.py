@@ -54,3 +54,25 @@ def card_sharded_repeats(rank, world, batch=64):
                   SH.sharded_optimize_pcg, SH.sharded_optimize_pcg):
         out.append(SH.gather_poses(solve(gs, mesh), mesh).cpu().numpy())
     return out
+
+
+def fail_on_last(rank, world):
+    """Rank ``world - 1`` raises at once; the others wait for it in a
+    barrier that never completes."""
+    import torch.distributed as dist
+
+    if rank == world - 1:
+        raise ValueError(f"rank {rank} fails on purpose")
+    dist.barrier()
+
+
+def sleep_on_last(rank, world, seconds):
+    """Rank ``world - 1`` sleeps ``seconds`` before its barrier; the others
+    wait for it there."""
+    import time
+
+    import torch.distributed as dist
+
+    if rank == world - 1:
+        time.sleep(seconds)
+    dist.barrier()
