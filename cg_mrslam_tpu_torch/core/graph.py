@@ -169,15 +169,33 @@ def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
 
 def permute_vertices(g: PoseGraph, order: torch.Tensor) -> PoseGraph:
     """Relabel vertex slots: slot ``k`` of the result is slot ``order[k]``
-    of ``g`` (``order`` a permutation of ``arange(N)``). Edge slots keep
+    of ``g`` (``order`` a permutation of ``arange(N)``, one for every graph
+    of a batch). Edge slots keep
     their positions; only the endpoint indices are remapped, so per-edge
     masks stay valid across the permutation (the transform that makes a
     merged multi-robot graph block-tridiagonal for the chain band)."""
     o = order.long()
     inv = inverse_permutation(order)
     return dataclasses.replace(
-        g, poses=g.poses[o], vmask=g.vmask[o], fixed=g.fixed[o],
-        e_ij=inv[g.e_ij.long()])
+        g, poses=g.poses[..., o, :], vmask=g.vmask[..., o],
+        fixed=g.fixed[..., o], e_ij=inv[g.e_ij.long()])
+
+
+def degrees(e_ij: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
+    """Active-edge degree ``[..., N]`` int32 of every vertex, for one graph
+    (``e_ij [E, 2]``, ``mask [E]``) or a batch (``[B, E, 2]``, ``[B, E]``).
+    Integer adds: exact in any order."""
+    lead = e_ij.shape[:-2]
+    b = 1
+    for k in lead:
+        b *= k
+    flat = e_ij.reshape(b, -1, 2).long() + n * torch.arange(
+        b, device=e_ij.device)[:, None, None]
+    m = mask.reshape(-1).to(torch.int32)
+    deg = torch.zeros((b * n,), dtype=torch.int32, device=e_ij.device)
+    deg.index_add_(0, flat[..., 0].reshape(-1), m)
+    deg.index_add_(0, flat[..., 1].reshape(-1), m)
+    return deg.reshape(lead + (n,))
 
 
 def active_edge_mask(g: PoseGraph,

@@ -102,11 +102,13 @@ def _edge_meta(path: str) -> dict:
 
 def load(path: str, max_vertices: int | None = None,
          max_edges: int | None = None, beams: int | None = None,
-         native: bool = True, device=None) -> LoadedGraph:
+         dtype: torch.dtype = torch.float32, native: bool = True,
+         device=None) -> LoadedGraph:
     """Read a ``.g2o`` file into a graph of the given capacity (the file's
-    counts by default), with its scans and edge provenance. ``native``
-    parses with the C++ parser (which raises when it cannot be built or
-    the file is malformed), otherwise in Python."""
+    counts by default), with its scans and edge provenance; the graph's
+    poses, measurements and information in ``dtype``. ``native`` parses
+    with the C++ parser (which raises when it cannot be built or the file
+    is malformed), otherwise in Python."""
     if native:
         from cg_mrslam_tpu_torch import native as N
 
@@ -114,11 +116,11 @@ def load(path: str, max_vertices: int | None = None,
     else:
         p = _parse_python(path)
     return _assemble(p, _edge_meta(path), max_vertices, max_edges, beams,
-                     resolve_device(device))
+                     resolve_device(device), dtype)
 
 
 def _assemble(p: dict, meta: dict, max_vertices, max_edges, beams,
-              dev: torch.device) -> LoadedGraph:
+              dev: torch.device, dtype: torch.dtype) -> LoadedGraph:
     n = p["v_ids"].shape[0]
     e = p["e_ids"].shape[0]
     cap_v = max_vertices or n
@@ -165,9 +167,9 @@ def _assemble(p: dict, meta: dict, max_vertices, max_edges, beams,
 
     f32 = torch.float32
     g = G.PoseGraph(
-        poses=t(poses, f32), vmask=t(vmask, torch.bool),
+        poses=t(poses, dtype), vmask=t(vmask, torch.bool),
         fixed=t(fix, torch.bool), e_ij=t(e_ij, torch.int32),
-        e_z=t(e_z, f32), e_info=t(e_info, f32),
+        e_z=t(e_z, dtype), e_info=t(e_info, dtype),
         emask=t(np.arange(cap_e) < e, torch.bool),
         e_level=t(e_level, torch.int32), e_owner=t(e_owner, torch.int32),
         n_vertices=torch.tensor(n, dtype=torch.int32, device=dev),

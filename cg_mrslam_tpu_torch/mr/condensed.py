@@ -11,9 +11,10 @@ frame. The settle and the marginals go through the capacity-banded solver
 under the (owner, keyframe) slot permutation.
 
 Two gauge policies: the centroid (default) and the uncertainty-minimizing
-:func:`select_gauge_optimal`, which condenses once per valid boundary
-vertex in a host loop (the reference ``vmap``s the K condenses; invalid
-slots can never win, so skipping them gives the same gauge).
+:func:`select_gauge_optimal`, which condenses every valid boundary vertex
+as a gauge in one batched :func:`condense` (the reference ``vmap``s the K
+condenses over every slot; invalid slots can never win, so leaving them
+out gives the same gauge).
 """
 
 from __future__ import annotations
@@ -54,22 +55,34 @@ def select_gauge_centroid(g: PoseGraph, boundary: torch.Tensor,
     return row(boundary, torch.argmin(d))
 
 
+def gauge_uncertainty(g: PoseGraph, boundary: torch.Tensor,
+                      valid: torch.Tensor, edge_mask: torch.Tensor,
+                      order: torch.Tensor | None = None) -> torch.Tensor:
+    """Total uncertainty ``[K]`` of every boundary slot as the gauge
+    (``computeOverallUncertainty``): Σ det(Ωₑ)⁻¹ over the valid edges of
+    its star, +inf on an invalid slot. The valid slots are read on the
+    host (one read) and condensed as one batch of gauges."""
+    u = torch.full(boundary.shape, float("inf"), dtype=g.poses.dtype,
+                   device=g.poses.device)
+    idx = torch.nonzero(valid.cpu()).reshape(-1).to(boundary.device)
+    if idx.numel() == 0:
+        return u
+    stars = condense(g, boundary, valid, boundary[idx], edge_mask, order)
+    det = torch.linalg.det(unpack_info(stars.info))             # [K',K]
+    inv = 1.0 / torch.clamp(det, min=1e-30)
+    u[idx] = torch.sum(torch.where(stars.valid, inv, torch.zeros_like(inv)),
+                       dim=-1)
+    return u
+
+
 def select_gauge_optimal(g: PoseGraph, boundary: torch.Tensor,
                          valid: torch.Tensor, edge_mask: torch.Tensor,
                          order: torch.Tensor | None = None) -> torch.Tensor:
     """Uncertainty-minimizing gauge (reference ``selectOptimalGauge``):
-    condense once per candidate gauge and pick the one whose star has the
-    smallest total uncertainty Σₑ det(Ωₑ)⁻¹ (``computeOverallUncertainty``);
-    the first minimum wins. The valid slots are read on the host (one
-    read) and condensed one at a time; invalid slots score +inf."""
-    u = torch.full(boundary.shape, float("inf"), dtype=g.poses.dtype,
-                   device=g.poses.device)
-    for k in torch.nonzero(valid.cpu()).reshape(-1).tolist():
-        star = condense(g, boundary, valid, boundary[k], edge_mask, order)
-        det = torch.linalg.det(unpack_info(star.info))
-        inv = 1.0 / torch.clamp(det, min=1e-30)
-        u[k] = torch.sum(torch.where(star.valid, inv,
-                                     torch.zeros_like(inv)))
+    the candidate whose star has the smallest total uncertainty
+    (:func:`gauge_uncertainty`, one batched condense of the valid
+    candidates); the first minimum wins."""
+    u = gauge_uncertainty(g, boundary, valid, edge_mask, order)
     return row(boundary, torch.argmin(u))
 
 
@@ -79,27 +92,39 @@ def condense(g: PoseGraph, boundary: torch.Tensor, valid: torch.Tensor,
     """Build the labeled star (reference ``CondensedGraphCreator::compute``).
     ``edge_mask`` selects the edges marginalized over (callers pass the
     own-edges mask); ``boundary`` is padded to a static K with ``valid``;
-    ``order`` is the chain permutation for the banded solver."""
+    ``order`` is the chain permutation for the banded solver. ``gauge``
+    ``[G]`` condenses the graph once per gauge, as one batch of ``G``
+    copies of the graph through the banded solver: a ``Star`` whose fields
+    lead with ``[G]``."""
     n = g.poses.shape[0]
     dev = g.poses.device
+    lead = gauge.shape
+    if lead:
+        g = PoseGraph(**{f.name: getattr(g, f.name).expand(
+            lead + getattr(g, f.name).shape).contiguous()
+            for f in dataclasses.fields(g)})
+        edge_mask = edge_mask.expand(lead + edge_mask.shape)
     # re-gauge: fix only the gauge vertex
+    gl = gauge.long()[..., None]
     regauged = dataclasses.replace(
-        g, fixed=torch.arange(n, device=dev) == gauge.long())
+        g, fixed=torch.arange(n, device=dev) == gl)
     # one GN settle on the selected edges
     regauged = gn.optimize_auto(regauged, 1, edge_mask, order=order)
 
-    bl = boundary.long()
-    z = se2.relative(row(regauged.poses, gauge), regauged.poses[bl])
+    poses = regauged.poses
+    at_gauge = torch.gather(poses, -2, gl[..., None].expand(lead + (1, 3)))
+    z = se2.relative(at_gauge, poses[..., boundary.long(), :])
 
-    # boundary marginals conditioned on the gauge  [K,3,3]
+    # boundary marginals conditioned on the gauge  [..., K,3,3]
     cov = gn.marginal_covariance_auto(regauged, boundary, edge_mask,
                                       order=order)
 
     # move covariance into the edge error frame (g2o EdgeLabeler's J·Σ·Jᵀ)
-    e_ij = torch.stack([gauge.to(boundary.dtype).expand_as(boundary),
-                        boundary], dim=-1)
-    _, _, Jb = linearize(regauged.poses, e_ij, z)
-    cov_e = Jb @ cov @ Jb.transpose(1, 2)
+    bk = boundary.expand(lead + boundary.shape)
+    e_ij = torch.stack([gauge.to(boundary.dtype)[..., None].expand_as(bk),
+                        bk], dim=-1)
+    _, _, Jb = linearize(poses, e_ij, z)
+    cov_e = Jb @ cov @ Jb.transpose(-1, -2)
     # symmetrize + tiny jitter before inversion (near-rigid chains give
     # ill-conditioned covariances)
     cov_e = 0.5 * (cov_e + cov_e.transpose(-1, -2))
@@ -108,8 +133,8 @@ def condense(g: PoseGraph, boundary: torch.Tensor, valid: torch.Tensor,
     omega = 0.5 * (omega + omega.transpose(-1, -2))
 
     # the gauge's own slot (zero covariance) carries no edge
-    ok = valid & (boundary != gauge)
-    return Star(gauge=gauge, boundary=boundary, z=z, info=pack_info(omega),
+    ok = valid & (boundary != gauge[..., None])
+    return Star(gauge=gauge, boundary=bk, z=z, info=pack_info(omega),
                 valid=ok)
 
 
@@ -126,3 +151,4 @@ def splice_star(g: PoseGraph, star: Star, owner) -> PoseGraph:
         g, star.gauge.to(star.boundary.dtype).expand_as(star.boundary),
         star.boundary, star.z, star.info, star.valid, level=level,
         owner=owner)
+

@@ -478,25 +478,33 @@ def receive_closure_list(st: MRState, peer: int, cl: ClosureList,
     return dataclasses.replace(st, in_closures=in_c)
 
 
-def build_star(st: MRState, peer: int, gauge_mode: str = "centroid",
-               cap: int = STAR_EDGES) -> StarMsg:
-    """Condense my own-edge graph onto the boundary ``peer`` requested
-    (``computeCondensedGraph``, own edges only), under the (owner,
-    keyframe) chain permutation. ``gauge_mode``: ``"centroid"`` (default,
-    ``selectGaugeCentroid``) or ``"optimal"`` (``selectOptimalGauge``: one
-    condense per valid boundary vertex, so K times the cost)."""
+def star_inputs(st: MRState, peer: int, cap: int = STAR_EDGES):
+    """What :func:`build_star` condenses: ``(graph, boundary slots [cap],
+    valid [cap], own-edge mask, chain order, requested count)`` — the
+    newest ≤ ``cap`` vertices ``peer`` closed on."""
     slam = st.slam
     sel = st.in_closures[peer]
     cap = min(cap, sel.shape[0])
     score = torch.where(sel, slam.v_remote,
                         torch.full_like(slam.v_remote, -1))
     vals, slots = first_k(score, cap)
-    slots = slots.to(torch.int32)
-    valid = vals >= 0
-    n_sel = torch.sum(sel.to(torch.int32))
     g = slam.graph
-    own = G.own_edge_mask(g, slam.my_id)
-    order = chain_order(slam.v_owner, slam.v_remote, g.vmask)
+    return (g, slots.to(torch.int32), vals >= 0,
+            G.own_edge_mask(g, slam.my_id),
+            chain_order(slam.v_owner, slam.v_remote, g.vmask),
+            torch.sum(sel.to(torch.int32)))
+
+
+def build_star(st: MRState, peer: int, gauge_mode: str = "centroid",
+               cap: int = STAR_EDGES) -> StarMsg:
+    """Condense my own-edge graph onto the boundary ``peer`` requested
+    (``computeCondensedGraph``, own edges only), under the (owner,
+    keyframe) chain permutation. ``gauge_mode``: ``"centroid"`` (default,
+    ``selectGaugeCentroid``) or ``"optimal"`` (``selectOptimalGauge``: one
+    condense per valid boundary vertex, batched, so K times the work)."""
+    slam = st.slam
+    g, slots, valid, own, order, n_sel = star_inputs(st, peer, cap)
+    cap = slots.shape[0]
     if gauge_mode == "optimal":
         gauge = CG.select_gauge_optimal(g, slots, valid, own, order)
     else:

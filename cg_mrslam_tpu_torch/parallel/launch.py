@@ -27,6 +27,17 @@ import torch
 import torch.distributed as dist
 
 
+def _record_failure(out: Path, rank: int) -> None:
+    """``rank{r}.err``: when the rank failed (the host's monotonic clock,
+    shared by its processes) and its traceback. The first record stays."""
+    err = out / f"rank{rank}.err"
+    if not err.exists():
+        tmp = out / f"rank{rank}.tmp"      # renamed whole: never read half
+        tmp.write_text(f"rank {rank} failed at monotonic_ns "
+                       f"{time.monotonic_ns()}\n{traceback.format_exc()}")
+        tmp.rename(err)
+
+
 def _main(rank: int, world: int, target, args, workdir: str,
           backend: str, cuda_index) -> None:
     out = Path(workdir)
@@ -39,11 +50,16 @@ def _main(rank: int, world: int, target, args, workdir: str,
                                 world_size=world)
         try:
             result = target(rank, world, *args)
+        except BaseException:
+            # recorded before the group goes down: a peer blocked in a
+            # collective fails only after this
+            _record_failure(out, rank)
+            raise
         finally:
             dist.destroy_process_group()
         torch.save(result, out / f"rank{rank}.pt")
     except BaseException:
-        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        _record_failure(out, rank)
         raise
 
 
@@ -75,10 +91,11 @@ def run_group(target, world_size: int, args=(), workdir=None,
     try:
         while True:
             codes = [p.exitcode for p in procs]
-            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
-            if failed:           # its peers may wait on it in a collective
-                raise RuntimeError(f"process group of {world_size}: ranks "
-                                   f"{failed} failed\n" + _errors(out))
+            if any(c not in (None, 0) for c in codes):
+                # its peers may wait on it in a collective
+                raise RuntimeError(f"process group of {world_size}: "
+                                   + _failed(out, codes) + "\n"
+                                   + _errors(out))
             running = [p.sentinel for p, c in zip(procs, codes) if c is None]
             if not running:
                 break
@@ -96,6 +113,24 @@ def run_group(target, world_size: int, args=(), workdir=None,
                 p.join(10.0)
     return [torch.load(out / f"rank{r}.pt", weights_only=False)
             for r in range(world_size)]
+
+
+def _failed(out: Path, codes) -> str:
+    """Which ranks failed, the first to fail apart from those that failed
+    after it (a peer whose collective broke when the first went down)."""
+    at = {}
+    for r, c in enumerate(codes):
+        err = out / f"rank{r}.err"
+        if err.exists():
+            first = err.read_text().split("\n", 1)[0]
+            at[r] = int(first.rsplit(" ", 1)[1])
+        elif c not in (None, 0):
+            at[r] = time.monotonic_ns()     # failed without a record
+    first = min(at.values())
+    lead = sorted(r for r, t in at.items() if t == first)
+    rest = sorted((r for r in at if r not in lead), key=at.get)
+    return (f"ranks {lead} failed"
+            + (f", then ranks {rest}" if rest else ""))
 
 
 def _errors(out: Path) -> str:

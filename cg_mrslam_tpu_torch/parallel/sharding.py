@@ -30,8 +30,8 @@ import torch
 import torch.distributed as dist
 
 from cg_mrslam_tpu_torch import resolve_device
-from cg_mrslam_tpu_torch.core.graph import PoseGraph, unpack_info
-from cg_mrslam_tpu_torch.core.linearize import linearize
+from cg_mrslam_tpu_torch.core.graph import PoseGraph, degrees, unpack_info
+from cg_mrslam_tpu_torch.core.linearize import flat_ends, linearize
 from cg_mrslam_tpu_torch.solver import fixed_sum as FS
 from cg_mrslam_tpu_torch.solver import gauss_newton as gn
 from cg_mrslam_tpu_torch.utils import se2
@@ -116,64 +116,12 @@ def gather_poses(poses: torch.Tensor, mesh) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def _flat_ends(poses, e_ij) -> torch.Tensor:
-    """Edge endpoints ``[B, E, 2]`` as rows of the flattened ``[B·N, 3]``
-    poses (graph ``b``'s vertices at rows ``b·N ..``)."""
-    bl, n = poses.shape[:2]
-    return e_ij.long() + n * torch.arange(bl, device=e_ij.device)[:, None,
-                                                                  None]
-
-
 def _edge_terms(poses, e_ij, e_z, e_info, emask):
     """Per-edge linearization of a batch: errors, Jacobians and the masked
-    information, each ``[B, E, ...]``, plus the flattened endpoints."""
-    bl, el = e_ij.shape[:2]
-    flat = _flat_ends(poses, e_ij)
-    e, Ji, Jj = linearize(poses.reshape(-1, 3), flat.reshape(-1, 2),
-                          e_z.reshape(-1, 3))
+    information, each ``[B, E, ...]``."""
+    e, Ji, Jj = linearize(poses, e_ij, e_z)
     omega = unpack_info(e_info) * emask.to(poses.dtype)[..., None, None]
-    return (e.reshape(bl, el, 3), Ji.reshape(bl, el, 3, 3),
-            Jj.reshape(bl, el, 3, 3), omega, flat)
-
-
-def _degrees(flat: torch.Tensor, emask: torch.Tensor, rows: int):
-    """Vertex degrees ``[rows]`` over the active edges (integer adds: exact
-    in any order)."""
-    em = emask.reshape(-1).to(torch.int32)
-    deg = torch.zeros((rows,), dtype=torch.int32, device=flat.device)
-    deg.index_add_(0, flat[..., 0].reshape(-1), em)
-    deg.index_add_(0, flat[..., 1].reshape(-1), em)
-    return deg
-
-
-def _local_normal_eq(poses, e_ij, e_z, e_info, emask):
-    """H ``[B, 3N, 3N]``, b ``[B, 3N]`` and degrees ``[B, N]`` from one edge
-    shard of a batch, every block summed by products with the one-hot
-    endpoint matrices (a fixed order)."""
-    bl, n = poses.shape[:2]
-    el = e_ij.shape[1]
-    dt = poses.dtype
-    e, Ji, Jj, omega, flat = _edge_terms(poses, e_ij, e_z, e_info, emask)
-    JiT_O = Ji.transpose(-1, -2) @ omega
-    JjT_O = Jj.transpose(-1, -2) @ omega
-    Hii, Hij, Hjj = JiT_O @ Ji, JiT_O @ Jj, JjT_O @ Jj
-    bi = (JiT_O @ e[..., None])[..., 0]
-    bj = (JjT_O @ e[..., None])[..., 0]
-    ar = torch.arange(n, device=poses.device)
-    oi = (e_ij[..., 0, None] == ar).to(dt)                     # [B,E,N]
-    oj = (e_ij[..., 1, None] == ar).to(dt)
-    oiT, ojT = oi.transpose(1, 2), oj.transpose(1, 2)
-    diag = (oiT @ Hii.reshape(bl, el, 9)
-            + ojT @ Hjj.reshape(bl, el, 9)).reshape(bl, n, 3, 3)
-    off = (oiT @ (Hij.reshape(bl, el, 9, 1) * oj[:, :, None, :]).reshape(
-        bl, el, 9 * n)).reshape(bl, n, 3, 3, n).permute(0, 1, 2, 4, 3)
-    H4 = off + off.permute(0, 3, 4, 1, 2)                     # [B,a,i,b,j]
-    H4 = H4 + diag[:, :, :, None, :] * torch.eye(
-        n, dtype=dt, device=poses.device)[None, :, None, :, None]
-    H = H4.reshape(bl, 3 * n, 3 * n)
-    b = (oiT @ bi + ojT @ bj).reshape(bl, 3 * n)
-    deg = _degrees(flat, emask, bl * n).reshape(bl, n)
-    return H, b, deg
+    return e, Ji, Jj, omega
 
 
 def sharded_optimize(g: PoseGraph, mesh, iterations: int = 5):
@@ -190,7 +138,8 @@ def sharded_optimize(g: PoseGraph, mesh, iterations: int = 5):
     poses = g.poses
     dt = poses.dtype
     for _ in range(iterations):
-        H, b, deg = _local_normal_eq(poses, g.e_ij, g.e_z, g.e_info, g.emask)
+        H, b, deg = gn.batched_normal_eq(poses, g.e_ij, g.e_z, g.e_info,
+                                         g.emask)
         for t in (H, b, deg):
             dist.all_reduce(t, group=group)
         free = g.vmask & ~g.fixed & (deg > 0)
@@ -208,19 +157,14 @@ def _local_pcg_factors(poses, e_ij, e_z, e_info, emask, table):
     terms, the gradient blocks ``[B, N, 3]``, the block-diagonal Hessian
     blocks ``[B, N, 3, 3]`` and the degrees (all to be reduced), summed
     through the fixed-order ``table``."""
-    bl, n = poses.shape[:2]
-    e, Ji, Jj, omega, flat = _edge_terms(poses, e_ij, e_z, e_info, emask)
+    e, Ji, Jj, omega = _edge_terms(poses, e_ij, e_z, e_info, emask)
     JiT_O = Ji.transpose(-1, -2) @ omega
     JjT_O = Jj.transpose(-1, -2) @ omega
     bi = (JiT_O @ e[..., None])[..., 0]
     bj = (JjT_O @ e[..., None])[..., 0]
-    b = FS.segment_sum(table, torch.cat([bi.reshape(-1, 3),
-                                         bj.reshape(-1, 3)]))
-    d = FS.segment_sum(table, torch.cat([(JiT_O @ Ji).reshape(-1, 3, 3),
-                                         (JjT_O @ Jj).reshape(-1, 3, 3)]))
-    deg = _degrees(flat, emask, bl * n)
-    return ((Ji, Jj, omega), b.reshape(bl, n, 3), d.reshape(bl, n, 3, 3),
-            deg.reshape(bl, n))
+    b = FS.ends_sum(table, bi, bj)
+    d = FS.ends_sum(table, JiT_O @ Ji, JjT_O @ Jj)
+    return (Ji, Jj, omega), b, d, degrees(e_ij, emask, poses.shape[1])
 
 
 def _sum(x: torch.Tensor) -> torch.Tensor:
@@ -241,10 +185,8 @@ def sharded_optimize_pcg(g: PoseGraph, mesh, iterations: int = 5,
     poses = g.poses
     bl, n = poses.shape[:2]
     dt = poses.dtype
-    flat = _flat_ends(poses, g.e_ij)
-    active = g.emask.reshape(-1)
-    table = FS.segment_table(flat.permute(2, 0, 1).reshape(-1),
-                             torch.cat([active, active]), bl * n)
+    flat = flat_ends(poses, g.e_ij)
+    table = FS.edge_table(g.e_ij, g.emask, n)
     eye = torch.eye(3, dtype=dt, device=poses.device)
     for _ in range(iterations):
         (Ji, Jj, omega), b, diag, deg = _local_pcg_factors(
@@ -263,9 +205,7 @@ def sharded_optimize_pcg(g: PoseGraph, mesh, iterations: int = 5,
             r = omega @ ((Ji @ xi[..., None]) + (Jj @ xj[..., None]))
             yi = (Ji.transpose(-1, -2) @ r)[..., 0]
             yj = (Jj.transpose(-1, -2) @ r)[..., 0]
-            y = FS.segment_sum(table, torch.cat([yi.reshape(-1, 3),
-                                                 yj.reshape(-1, 3)]))
-            y = y.reshape(bl, n, 3)
+            y = FS.ends_sum(table, yi, yj)
             dist.all_reduce(y, group=group)
             return y * freeb
 

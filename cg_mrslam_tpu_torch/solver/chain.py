@@ -26,42 +26,83 @@ breakdown-safe exit selection (:func:`_select_cg_iterate`). Their
 tolerance exits run as :func:`solver.spd.masked_loop` (a static budget
 with a per-column done mask — the reference's batched ``while_loop``
 semantics).
+
+:func:`optimize_chain` keeps the reference's two levers: ``cg_schedule``
+(one CG budget per GN iteration) and ``freeze_precond`` (one
+preconditioner for every iteration, each iteration checked by
+:func:`_freeze_diverged` and redone with a fresh one where chi2 blew up).
+
+**Batches of graphs.** Every entry point also takes a graph with a leading
+batch axis (``[B, N, ...]``; the reference ``vmap``s over it) and one
+``order`` for every graph. The batch shares one segment table (one host
+read), the cyclic reduction runs over ``[blocks, B, ...]``, and every CG
+system keeps its own exit, so a graph's result does not depend on its
+batch-mates. Batch-1 calls keep their own operations and bits.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
 import torch
 
-from cg_mrslam_tpu_torch.core.graph import (PoseGraph, inverse_permutation,
+from cg_mrslam_tpu_torch.core.graph import (PoseGraph, degrees,
+                                            inverse_permutation,
                                             permute_vertices, unpack_info)
-from cg_mrslam_tpu_torch.core.linearize import linearize
-from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, segment_sum
+from cg_mrslam_tpu_torch.core.linearize import chi2, linearize
+from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, ends_sum
 from cg_mrslam_tpu_torch.solver.spd import (_spd_inverse_rec, masked_loop,
-                                            spd_inverse)
+                                            per, spd_inverse)
 from cg_mrslam_tpu_torch.utils import se2
 
 # Poses per cyclic-reduction super-block (the reference's constant: it
 # fixes the factorization's block structure, so the results).
 GROUP = 16
 
+# Graphs whose frozen-preconditioner GN iteration :func:`_freeze_diverged`
+# sent back to be redone with a fresh preconditioner. A plain counter for
+# runs that report it; nothing reads it on the solve path.
+FREEZE_REDOS = collections.Counter()
+
 
 def _deg(g: PoseGraph, m: torch.Tensor) -> torch.Tensor:
     """Active-edge degree of every vertex under edge mask ``m``."""
-    n = g.poses.shape[0]
-    mi = m.to(torch.int32)
-    d = torch.zeros((n,), dtype=torch.int32, device=g.poses.device)
-    d.index_add_(0, g.e_ij[:, 0].long(), mi)
-    d.index_add_(0, g.e_ij[:, 1].long(), mi)
-    return d
+    return degrees(g.e_ij, m, g.poses.shape[-2])
+
+
+def _bspec(spec: str) -> str:
+    """An einsum spec with a leading batch index ``b`` on every operand."""
+    ins, out = spec.split("->")
+    return ",".join("b" + t for t in ins.split(",")) + "->b" + out
+
+
+def _es(spec: str, *ops, batched: bool = False) -> torch.Tensor:
+    return torch.einsum(_bspec(spec) if batched else spec, *ops)
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along axis 0, or along axis 1 per graph of a batch
+    (``idx [B, M]``)."""
+    if idx.dim() == 1:
+        return x[idx]
+    return x[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
+
+
+def _rows_of(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, :]`` per graph: ``x [B, *C, N, 3]``, ``idx [B, M]``
+    → ``[B, *C, M, 3]``."""
+    mid = x.shape[1:-2]
+    ix = idx.reshape((idx.shape[0],) + (1,) * len(mid) + (idx.shape[1], 1))
+    return torch.gather(x, -2, ix.expand(x.shape[:-2] + (idx.shape[1],
+                                                          x.shape[-1])))
 
 
 def chain_masks(g: PoseGraph, edge_mask: torch.Tensor | None = None):
     """Split active edges into chain (j == i+1) and loop parts."""
     mask = g.emask if edge_mask is None else (g.emask & edge_mask)
-    is_chain = mask & (g.e_ij[:, 1] == g.e_ij[:, 0] + 1)
+    is_chain = mask & (g.e_ij[..., 1] == g.e_ij[..., 0] + 1)
     return is_chain, mask & ~is_chain
 
 
@@ -80,20 +121,22 @@ def chain_order(v_owner: torch.Tensor, v_remote: torch.Tensor,
 
 def _select_loops(is_loop: torch.Tensor, loop_cap: int):
     """First ``loop_cap`` active loop edges (ascending slot): ``(sel,
-    lmask, loop_used [E], dropped [])``."""
-    e = is_loop.shape[0]
+    lmask, loop_used [E], dropped [])``, each with the batch's leading
+    axis for a batch."""
+    e = is_loop.shape[-1]
     eidx = torch.arange(e, dtype=torch.int32, device=is_loop.device)
     order = torch.where(is_loop, eidx, torch.full_like(eidx, e))
-    sel = torch.sort(order).values[:loop_cap]
+    sel = torch.sort(order).values[..., :loop_cap]
     lmask = sel < e
     sel = torch.clamp(sel, 0, e - 1)
-    loop_used = torch.zeros((e + 1,), dtype=torch.bool,
+    loop_used = torch.zeros(is_loop.shape[:-1] + (e + 1,), dtype=torch.bool,
                             device=is_loop.device)
-    loop_used[torch.where(lmask, sel, torch.full_like(sel, e)).long()] = \
-        torch.ones((), dtype=torch.bool, device=is_loop.device)
-    n_loop = torch.sum(is_loop.to(torch.int32))
+    loop_used.scatter_(-1, torch.where(lmask, sel,
+                                       torch.full_like(sel, e)).long(),
+                       torch.ones_like(lmask))
+    n_loop = torch.sum(is_loop.to(torch.int32), dim=-1)
     dropped = torch.clamp(n_loop - loop_cap, min=0).to(torch.int32)
-    return sel.long(), lmask, loop_used[:e], dropped
+    return sel.long(), lmask, loop_used[..., :e], dropped
 
 
 def chainable(g: PoseGraph, edge_mask: torch.Tensor | None = None,
@@ -102,19 +145,20 @@ def chainable(g: PoseGraph, edge_mask: torch.Tensor | None = None,
     """True when the fast path is exact against the dense solver: no
     active loop edge beyond ``loop_cap``, and every vertex the dense
     solver would optimize is covered by a chain edge or a selected loop
-    edge."""
+    edge (``[B]`` for a batch)."""
     if order is not None:
         g = permute_vertices(g, order)
     is_chain, is_loop = chain_masks(g, edge_mask)
     if loop_cap is None:
         loop_used = is_loop
-        cap_ok = torch.ones((), dtype=torch.bool, device=g.poses.device)
+        cap_ok = torch.ones(g.poses.shape[:-2], dtype=torch.bool,
+                            device=g.poses.device)
     else:
         _, _, loop_used, dropped = _select_loops(is_loop, loop_cap)
         cap_ok = dropped == 0
     free_any = g.vmask & ~g.fixed & (_deg(g, is_chain | is_loop) > 0)
     covered = _deg(g, is_chain | loop_used) > 0
-    return torch.all(~free_any | covered) & cap_ok
+    return torch.all(~free_any | covered, dim=-1) & cap_ok
 
 
 class _Tridiag(NamedTuple):
@@ -129,7 +173,7 @@ def _edge_table(g: PoseGraph, edge_mask) -> torch.Tensor:
     solve, so built once (one host read) and passed to every
     :func:`_assemble`."""
     is_chain, is_loop = chain_masks(g, edge_mask)
-    return edge_table(g.e_ij, is_chain | is_loop, g.poses.shape[0])
+    return edge_table(g.e_ij, is_chain | is_loop, g.poses.shape[-2])
 
 
 def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
@@ -138,7 +182,8 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
     factors ``(li, lj, lJi, lJj, lom, U)``, dropped). Loop edges beyond
     ``loop_cap`` are left out of the whole truncated system. ``table``:
     the solve's :func:`_edge_table` (built here if not given)."""
-    n = g.poses.shape[0]
+    bat = g.poses.dim() == 3
+    n = g.poses.shape[-2]
     dt = g.poses.dtype
     dev = g.poses.device
     is_chain, is_loop = chain_masks(g, edge_mask)
@@ -146,7 +191,10 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
         table = edge_table(g.e_ij, is_chain | is_loop, n)
     e, Ji, Jj = linearize(g.poses, g.e_ij, g.e_z)
     omega = unpack_info(g.e_info)
-    vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
+    vi, vj = g.e_ij[..., 0].long(), g.e_ij[..., 1].long()
+
+    def ends(at_i, at_j):
+        return ends_sum(table, at_i, at_j, g.poses.dim() - 2)
 
     sel, lmask, loop_used, dropped = _select_loops(is_loop, loop_cap)
 
@@ -154,51 +202,52 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
     free = g.vmask & ~g.fixed & (_deg(g, mask_used) > 0)
 
     # pinned endpoints contribute identity rows/cols: zero their Jacobian
-    Jif = Ji * free[vi].to(dt)[:, None, None]
-    Jjf = Jj * free[vj].to(dt)[:, None, None]
+    Jif = Ji * free.gather(-1, vi).to(dt)[..., None, None]
+    Jjf = Jj * free.gather(-1, vj).to(dt)[..., None, None]
 
-    cm = is_chain.to(dt)[:, None, None]
-    JiT_O = (Jif.transpose(1, 2) @ omega) * cm
+    cm = is_chain.to(dt)[..., None, None]
+    JiT_O = (Jif.transpose(-1, -2) @ omega) * cm
     Hii = JiT_O @ Jif
     Hij = JiT_O @ Jjf
-    JjT_O = (Jjf.transpose(1, 2) @ omega) * cm
+    JjT_O = (Jjf.transpose(-1, -2) @ omega) * cm
     Hjj = JjT_O @ Jjf
 
-    D = segment_sum(table, torch.cat([Hii, Hjj]))
-    L = segment_sum(table, torch.cat([Hij.transpose(1, 2) * cm,
-                                      torch.zeros_like(Hij)]))
+    D = ends(Hii, Hjj)
+    L = ends(Hij.transpose(-1, -2) * cm, torch.zeros_like(Hij))
 
     # gradient over the edges IN the truncated system
-    om_used = omega * mask_used.to(dt)[:, None, None]
-    oe = (om_used @ e[:, :, None])                       # [E,3,1]
-    bi = (Jif.transpose(1, 2) @ oe)[:, :, 0]
-    bj = (Jjf.transpose(1, 2) @ oe)[:, :, 0]
-    b = segment_sum(table, torch.cat([bi, bj]))
+    om_used = omega * mask_used.to(dt)[..., None, None]
+    oe = (om_used @ e[..., None])                        # [E,3,1]
+    bi = (Jif.transpose(-1, -2) @ oe)[..., 0]
+    bj = (Jjf.transpose(-1, -2) @ oe)[..., 0]
+    b = ends(bi, bj)
 
     eye = torch.eye(3, dtype=dt, device=dev)
-    fb = free[:, None, None]
-    diag_scale = torch.sum(D * eye) / torch.clamp(
-        3.0 * torch.sum(free.to(dt)), min=1.0)
-    lam = damp * diag_scale + 1e-6
+    fb = free[..., None, None]
+    diag_scale = torch.sum(D * eye, dim=(-3, -2, -1)) / torch.clamp(
+        3.0 * torch.sum(free.to(dt), dim=-1), min=1.0)
+    lam = per(damp * diag_scale + 1e-6, D)
     D_true = torch.where(fb, D, eye)
     D = torch.where(fb, D + lam * eye, eye)
     # decouple across pinned vertices
-    lok = torch.cat([(free[:n - 1] & free[1:]).to(dt),
-                     torch.zeros((1,), dtype=dt, device=dev)])
-    L = L * lok[:, None, None]
+    lok = torch.cat([(free[..., :n - 1] & free[..., 1:]).to(dt),
+                     torch.zeros(free.shape[:-1] + (1,), dtype=dt,
+                                 device=dev)], -1)
+    L = L * lok[..., None, None]
 
-    lm3 = lmask.to(dt)[:, None, None]
-    li = torch.where(lmask, vi[sel], torch.zeros_like(sel))
-    lj = torch.where(lmask, vj[sel], torch.zeros_like(sel))
-    lJi = Jif[sel] * lm3
-    lJj = Jjf[sel] * lm3
-    lom = torch.where(lmask[:, None, None], omega[sel], eye)
+    lm3 = lmask.to(dt)[..., None, None]
+    li = torch.where(lmask, vi.gather(-1, sel), torch.zeros_like(sel))
+    lj = torch.where(lmask, vj.gather(-1, sel), torch.zeros_like(sel))
+    lJi = _pick(Jif, sel) * lm3
+    lJj = _pick(Jjf, sel) * lm3
+    lom = torch.where(lmask[..., None, None], _pick(omega, sel), eye)
     # U[3i.., 3m..] = Jᵢ_mᵀ → [N, 3, 3M] (one-hot products: a fixed order)
-    m = li.shape[0]
+    m = li.shape[-1]
     Oi = torch.nn.functional.one_hot(li, n).to(dt)         # [M,N]
     Oj = torch.nn.functional.one_hot(lj, n).to(dt)
-    U = (torch.einsum("mn,mac->ncma", Oi, lJi)
-         + torch.einsum("mn,mac->ncma", Oj, lJj)).reshape(n, 3, 3 * m)
+    U = (_es("mn,mac->ncma", Oi, lJi, batched=bat)
+         + _es("mn,mac->ncma", Oj, lJj, batched=bat)).reshape(
+        g.poses.shape[:-2] + (n, 3, 3 * m))
     return (_Tridiag(D=D, Dt=D_true, L=L, free=free), b,
             (li, lj, lJi, lJj, lom, U), dropped)
 
@@ -242,45 +291,52 @@ def _inv_block(a: torch.Tensor) -> torch.Tensor:
 
 
 def _to_super(D: torch.Tensor, L: torch.Tensor, group: int):
-    """Regroup a 3×3 block-tridiagonal chain into dense ``3·group``-square
+    """Regroup a 3×3 block-tridiagonal chain (``D [n, ..., 3, 3]``, the
+    batch's axes after the block axis) into dense ``3·group``-square
     super-blocks (tail padded with identity)."""
     n = D.shape[0]
     ns = -(-n // group)
     pad = ns * group - n
+    lead = D.shape[1:-2]
     dev = D.device
     if pad:
-        eye = torch.eye(3, dtype=D.dtype, device=dev).expand(pad, 3, 3)
+        eye = torch.eye(3, dtype=D.dtype, device=dev).expand(
+            (pad,) + D.shape[1:])
         D = torch.cat([D, eye], dim=0)
-        L = torch.cat([L, torch.zeros((pad, 3, 3), dtype=L.dtype,
+        L = torch.cat([L, torch.zeros((pad,) + L.shape[1:], dtype=L.dtype,
                                       device=dev)], dim=0)
         L[n - 1] = 0.0
-    Dr = D.reshape(ns, group, 3, 3)
-    Lr = L.reshape(ns, group, 3, 3)
+    Dr = D.reshape((ns, group) + D.shape[1:])
+    Lr = L.reshape((ns, group) + L.shape[1:])
     b = 3 * group
-    Ds = torch.zeros((ns, b, b), dtype=D.dtype, device=dev)
+    Ds = torch.zeros((ns,) + lead + (b, b), dtype=D.dtype, device=dev)
     for k in range(group):
-        Ds[:, 3 * k:3 * k + 3, 3 * k:3 * k + 3] = Dr[:, k]
+        Ds[..., 3 * k:3 * k + 3, 3 * k:3 * k + 3] = Dr[:, k]
     for k in range(group - 1):
         blk = Lr[:, k]
-        Ds[:, 3 * (k + 1):3 * (k + 1) + 3, 3 * k:3 * k + 3] = blk
-        Ds[:, 3 * k:3 * k + 3, 3 * (k + 1):3 * (k + 1) + 3] = \
+        Ds[..., 3 * (k + 1):3 * (k + 1) + 3, 3 * k:3 * k + 3] = blk
+        Ds[..., 3 * k:3 * k + 3, 3 * (k + 1):3 * (k + 1) + 3] = \
             blk.transpose(-1, -2)
     # L_s[t] = T_s[t+1, t]: only the (first pose of t+1) × (last pose of
     # t) corner is nonzero
-    Ls = torch.zeros((ns, b, b), dtype=D.dtype, device=dev)
-    Ls[:, 0:3, b - 3:b] = Lr[:, group - 1]
+    Ls = torch.zeros((ns,) + lead + (b, b), dtype=D.dtype, device=dev)
+    Ls[..., 0:3, b - 3:b] = Lr[:, group - 1]
     Ls[ns - 1] = 0.0
     return Ds, Ls, ns, pad
 
 
 def _cr_factor(D: torch.Tensor, L: torch.Tensor, group: int = GROUP):
     """Cyclic-reduction factorization of the SPD block-tridiagonal T
-    (``D [n,3,3]``, ``L[k] = T[k+1,k]``) over super-blocks: each level
+    (``D [n,3,3]``, ``L[k] = T[k+1,k]``; ``[B, n, 3, 3]`` for a batch,
+    factored over ``[blocks, B, ...]``) over super-blocks: each level
     eliminates the odd-indexed blocks,
 
         D'[t] = D[2t] − L[2t−1] D⁻¹[2t−1] Lᵀ[2t−1] − Lᵀ[2t] D⁻¹[2t+1] L[2t]
         L'[t] = −L[2t+1] D⁻¹[2t+1] L[2t]
     """
+    batched = D.dim() == 4
+    if batched:
+        D, L = D.movedim(1, 0), L.movedim(1, 0)
     n3 = D.shape[0]
     D, L, ns, _ = _to_super(D, L, group)
     bb = D.shape[-1]
@@ -288,13 +344,15 @@ def _cr_factor(D: torch.Tensor, L: torch.Tensor, group: int = GROUP):
     n = ns
     m = _next_pow2(n)
     if m > n:
-        eye = torch.eye(bb, dtype=D.dtype, device=dev).expand(m - n, bb, bb)
+        eye = torch.eye(bb, dtype=D.dtype, device=dev).expand(
+            (m - n,) + D.shape[1:])
         D = torch.cat([D, eye], dim=0)
-        L = torch.cat([L, torch.zeros((m - n, bb, bb), dtype=L.dtype,
+        L = torch.cat([L, torch.zeros((m - n,) + L.shape[1:], dtype=L.dtype,
                                       device=dev)], dim=0)
         L[n - 1] = 0.0   # padding must not couple
-    eye1 = torch.eye(bb, dtype=D.dtype, device=dev)[None]
-    zero1 = torch.zeros((1, bb, bb), dtype=L.dtype, device=dev)
+    eye1 = torch.eye(bb, dtype=D.dtype, device=dev).expand(
+        (1,) + D.shape[1:])
+    zero1 = torch.zeros((1,) + L.shape[1:], dtype=L.dtype, device=dev)
     levels = []
     while D.shape[0] > 1:
         Do = D[1::2]
@@ -310,44 +368,58 @@ def _cr_factor(D: torch.Tensor, L: torch.Tensor, group: int = GROUP):
         levels.append((Doi, Le, Lo, A, B))
         D, L = Dn, Ln
     return {"levels": levels, "root_inv": _inv_block(D[0]),
-            "n": n, "m": m, "n3": n3, "group": group}
+            "n": n, "m": m, "n3": n3, "group": group, "batched": batched}
+
+
+def _sub_mm(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """``c − a @ b`` as one fused ``baddbmm`` over the leading axes."""
+    if c.dim() == 3:
+        return torch.baddbmm(c, a, b, alpha=-1.0)
+    return torch.baddbmm(c.flatten(0, 1), a.flatten(0, 1), b.flatten(0, 1),
+                         alpha=-1.0).unflatten(0, c.shape[:2])
 
 
 def _cr_apply(fact, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve T x = rhs ``[n,3,R]`` with a :func:`_cr_factor`
-    factorization."""
+    """Solve T x = rhs ``[n,3,R]`` (``[B, n, 3, R]`` for a batch) with a
+    :func:`_cr_factor` factorization."""
     n, m = fact["n"], fact["m"]
     n3, group = fact["n3"], fact["group"]
+    batched = fact["batched"]
+    if batched:
+        rhs = rhs.movedim(1, 0)                        # [n3, B, 3, R]
+    lead = rhs.shape[1:-2]
     r_cols = rhs.shape[-1]
     dev = rhs.device
     pad3 = n * group - n3
     if pad3:
         rhs = torch.cat([rhs, torch.zeros((pad3,) + rhs.shape[1:],
                                           dtype=rhs.dtype, device=dev)], 0)
-    rhs = rhs.reshape(n, 3 * group, r_cols)
+    # blocks of `group` poses: [n·group, *lead, 3, R] → [n, *lead, 3·group, R]
+    rhs = rhs.reshape((n, group) + lead + (3, r_cols)).movedim(
+        1, -3).reshape((n,) + lead + (3 * group, r_cols))
     if m > n:
         rhs = torch.cat([rhs, torch.zeros((m - n,) + rhs.shape[1:],
                                           dtype=rhs.dtype, device=dev)], 0)
     pad = torch.nn.functional.pad
+    first = (0, 0) * (rhs.dim() - 1)          # no padding but on axis 0
     stack = []
     for (Doi, Le, Lo, A, B) in fact["levels"]:
         re, ro = rhs[0::2], rhs[1::2]
-        ro_prev = pad(ro[:-1], (0, 0, 0, 0, 1, 0))          # r[2t−1]
-        rhs = torch.baddbmm(torch.baddbmm(re, A, ro_prev, alpha=-1.0), B,
-                            ro, alpha=-1.0)
+        ro_prev = pad(ro[:-1], first + (1, 0))               # r[2t−1]
+        rhs = _sub_mm(_sub_mm(re, A, ro_prev), B, ro)
         stack.append((Doi, Le, Lo, ro))
 
     x = fact["root_inv"][None] @ rhs
     for (Doi, Le, Lo, ro) in reversed(stack):
         # x holds this level's even solutions; recover the odds:
         # x[2t+1] = D⁻¹[2t+1] (r[2t+1] − L[2t] x[2t] − Lᵀ[2t+1] x[2t+2])
-        x_next = pad(x[1:], (0, 0, 0, 0, 0, 1))
-        xo = Doi @ torch.baddbmm(torch.baddbmm(ro, Le, x, alpha=-1.0),
-                                 Lo.transpose(-1, -2), x_next, alpha=-1.0)
+        x_next = pad(x[1:], first + (0, 1))
+        xo = Doi @ _sub_mm(_sub_mm(ro, Le, x), Lo.transpose(-1, -2), x_next)
         k2 = x.shape[0] + xo.shape[0]
         x = torch.stack([x, xo], dim=1).reshape((k2,) + x.shape[1:])
-    x = x[:n].reshape(n * group, 3, r_cols)
-    return x[:n3]
+    x = x[:n].reshape((n,) + lead + (group, 3, r_cols)).movedim(
+        -3, 1).reshape((n * group,) + lead + (3, r_cols))[:n3]
+    return x.movedim(0, 1) if batched else x
 
 
 def _cr_solve(D, L, rhs, group: int = GROUP):
@@ -370,58 +442,83 @@ class _PrecondState(NamedTuple):
 def _precond_setup(td: _Tridiag, loops) -> _PrecondState:
     """Factor the damped chain and build the Woodbury correction."""
     li, lj, lJi, lJj, lom, U = loops
-    m = li.shape[0]
+    m = li.shape[-1]
 
     fact = _cr_factor(td.D, td.L)
     HinvU = _cr_apply(fact, U)                              # [N,3,3M]
 
     # S = Ω⁻¹ (block-diagonal) + Uᵀ Hc⁻¹ U   [3M, 3M]
-    UtX = lJi @ HinvU[li] + lJj @ HinvU[lj]                 # [M,3,3M]
-    S4 = UtX.reshape(m, 3, m, 3).clone()
-    ar = torch.arange(m, device=li.device)
-    S4[ar, :, ar, :] += _inv3(lom)
-    s_inv = spd_inverse(S4.reshape(3 * m, 3 * m))
-    s_inv = 0.5 * (s_inv + s_inv.T)     # the preconditioner is symmetric
+    UtX = lJi @ _pick(HinvU, li) + lJj @ _pick(HinvU, lj)   # [M,3,3M]
+    if li.dim() == 1:
+        S4 = UtX.reshape(m, 3, m, 3).clone()
+        ar = torch.arange(m, device=li.device)
+        S4[ar, :, ar, :] += _inv3(lom)
+        s_inv = spd_inverse(S4.reshape(3 * m, 3 * m))
+    else:
+        b = li.shape[0]
+        eye_m = torch.eye(m, dtype=lom.dtype, device=li.device)
+        S4 = UtX.reshape(b, m, 3, m, 3) + torch.einsum(
+            "bmij,mn->bminj", _inv3(lom), eye_m)
+        s_inv = spd_inverse(S4.reshape(b, 3 * m, 3 * m), batch_dims=1)
+    # the preconditioner is symmetric
+    s_inv = 0.5 * (s_inv + s_inv.transpose(-1, -2))
     return _PrecondState(fact=fact, HinvU=HinvU, s_inv=s_inv, li=li, lj=lj,
                          lJi=lJi, lJj=lJj)
 
 
 def _ut(lJi, lJj, li, lj, x: torch.Tensor) -> torch.Tensor:
     """Uᵀ x for ``x [..., N, 3]`` → ``[..., 3M]`` (U's columns are the
-    loop Jacobians' rows). The 3×3 products here and in the matvecs are
+    loop Jacobians' rows; for a batch ``x [B, ..., N, 3]`` and the loop
+    factors per graph). The 3×3 products here and in the matvecs are
     einsums: the blocks are the batch of one product over all of ``x``'s
     leading columns, where a broadcast ``@`` would copy every block once
     per column."""
-    y = (torch.einsum("mij,...mj->...mi", lJi, x[..., li, :])
-         + torch.einsum("mij,...mj->...mi", lJj, x[..., lj, :]))
+    if li.dim() == 1:
+        y = (torch.einsum("mij,...mj->...mi", lJi, x[..., li, :])
+             + torch.einsum("mij,...mj->...mi", lJj, x[..., lj, :]))
+    else:
+        y = (torch.einsum("bmij,b...mj->b...mi", lJi, _rows_of(x, li))
+             + torch.einsum("bmij,b...mj->b...mi", lJj, _rows_of(x, lj)))
     return y.reshape(y.shape[:-2] + (-1,))
 
 
 def _precond(pst: _PrecondState, r: torch.Tensor) -> torch.Tensor:
-    """M r = (Hc+λI + UΩUᵀ)⁻¹ r via Woodbury, for ``r [..., N, 3]``."""
-    lead = r.shape[:-2]
+    """M r = (Hc+λI + UΩUᵀ)⁻¹ r via Woodbury, for ``r [..., N, 3]``
+    (``[B, ..., N, 3]`` for a batch)."""
     n = r.shape[-2]
-    cols = r.reshape(-1, n, 3).permute(1, 2, 0)             # [N,3,C]
-    z = _cr_apply(pst.fact, cols).permute(2, 0, 1).reshape(lead + (n, 3))
-    y = _ut(pst.lJi, pst.lJj, pst.li, pst.lj, z) @ pst.s_inv.T  # [...,3M]
-    return z - torch.einsum("ncq,...q->...nc", pst.HinvU, y)
+    if pst.li.dim() == 1:
+        lead = r.shape[:-2]
+        cols = r.reshape(-1, n, 3).permute(1, 2, 0)         # [N,3,C]
+        z = _cr_apply(pst.fact, cols).permute(2, 0, 1).reshape(
+            lead + (n, 3))
+        y = _ut(pst.lJi, pst.lJj, pst.li, pst.lj, z) @ pst.s_inv.T
+        return z - torch.einsum("ncq,...q->...nc", pst.HinvU, y)
+    b = r.shape[0]
+    cols = r.reshape(b, -1, n, 3).permute(0, 2, 3, 1)       # [B,N,3,C]
+    z = _cr_apply(pst.fact, cols).permute(0, 3, 1, 2).reshape(r.shape)
+    ut = _ut(pst.lJi, pst.lJj, pst.li, pst.lj, z)
+    y = (ut.reshape(b, -1, ut.shape[-1]) @ pst.s_inv.transpose(-1, -2)
+         ).reshape(ut.shape)
+    return z - torch.einsum("bncq,b...q->b...nc", pst.HinvU, y)
 
 
 def _h_matvec(td: _Tridiag, loops, x: torch.Tensor) -> torch.Tensor:
-    """TRUE ``H x = (Hc + U Ω Uᵀ) x`` for ``x [..., N, 3]`` — undamped
-    diagonal blocks."""
+    """TRUE ``H x = (Hc + U Ω Uᵀ) x`` for ``x [..., N, 3]`` (``[B, ..., N,
+    3]`` for a batch) — undamped diagonal blocks."""
     li, lj, lJi, lJj, lom, U = loops
+    bat = li.dim() == 2
     D, L = td.Dt, td.L
     xp = torch.cat([torch.zeros_like(x[..., :1, :]), x[..., :-1, :]], -2)
     xn = torch.cat([x[..., 1:, :], torch.zeros_like(x[..., :1, :])], -2)
-    Lprev = torch.cat([torch.zeros_like(L[:1]), L[:-1]], 0)
-    y = (torch.einsum("nij,...nj->...ni", D, x)
-         + torch.einsum("nij,...nj->...ni", Lprev, xp)
-         + torch.einsum("nji,...nj->...ni", L, xn))
+    Lprev = torch.cat([torch.zeros_like(L[..., :1, :, :]),
+                       L[..., :-1, :, :]], -3)
+    y = (_es("nij,...nj->...ni", D, x, batched=bat)
+         + _es("nij,...nj->...ni", Lprev, xp, batched=bat)
+         + _es("nji,...nj->...ni", L, xn, batched=bat))
     utx = _ut(lJi, lJj, li, lj, x)
     utx = utx.reshape(utx.shape[:-1] + (-1, 3))             # [...,M,3]
-    w = torch.einsum("mij,...mj->...mi", lom, utx)
-    return y + torch.einsum("ncq,...q->...nc", U, w.flatten(-2))
+    w = _es("mij,...mj->...mi", lom, utx, batched=bat)
+    return y + _es("ncq,...q->...nc", U, w.flatten(-2), batched=bat)
 
 
 def _select_cg_iterate(x_fin, rr2_fin, x_best, rr2_best):
@@ -482,20 +579,32 @@ def _pcg_best(hmv, prec, rhs: torch.Tensor, bn: torch.Tensor, tol2: float,
     return _select_cg_iterate(x_fin, rr2_fin, x_best, rr2_best)
 
 
+def _freeze_diverged(c_old: torch.Tensor,
+                     c_new: torch.Tensor) -> torch.Tensor:
+    """True where a GN iteration under a frozen preconditioner made chi2
+    materially worse: more than 4× plus an absolute slack of 1 (GN is not
+    strictly monotone near convergence). NaN-safe by the negated ``<=``:
+    a non-finite new chi2 always counts."""
+    return ~(c_new <= 4.0 * c_old + 1.0)
+
+
 def _chain_delta_impl(g: PoseGraph, edge_mask, loop_cap: int,
                       cg_tol: float = 1e-6, cg_iters: int = 48,
                       damp: float = 1e-3,
-                      table: torch.Tensor | None = None):
-    """One GN update via preconditioned CG on the CURRENT true H."""
+                      table: torch.Tensor | None = None,
+                      pst: _PrecondState | None = None):
+    """One GN update via preconditioned CG on the CURRENT true H. ``pst``
+    reuses a frozen preconditioner from an earlier linearization."""
     td, b, loops, dropped = _assemble(g, edge_mask, loop_cap, damp=damp,
                                       table=table)
-    pst = _precond_setup(td, loops)
+    if pst is None:
+        pst = _precond_setup(td, loops)
     bb = -b
-    bn = torch.clamp(torch.sum(bb * bb), min=1e-30)
+    bn = torch.clamp(torch.sum(bb * bb, dim=(-2, -1)), min=1e-30)
     dx = _pcg_best(lambda x: _h_matvec(td, loops, x),
                    lambda r: _precond(pst, r), bb, bn,
                    cg_tol * cg_tol, cg_iters)
-    dx = dx * td.free[:, None].to(dx.dtype)
+    dx = dx * td.free[..., None].to(dx.dtype)
     return dx, dropped
 
 
@@ -513,33 +622,71 @@ def chain_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
     dx, dropped = _chain_delta_impl(permute_vertices(g, order), edge_mask,
                                     loop_cap, cg_tol=cg_tol,
                                     cg_iters=cg_iters, damp=damp)
-    return dx[inv], dropped
+    return dx[..., inv, :], dropped
 
 
 def optimize_chain(g: PoseGraph, iterations: int = 5,
                    edge_mask: torch.Tensor | None = None,
                    loop_cap: int = 64, cg_tol: float = 1e-6,
                    cg_iters: int = 48, order: torch.Tensor | None = None,
-                   return_dropped: bool = False, damp: float = 1e-3):
+                   return_dropped: bool = False, damp: float = 1e-3,
+                   cg_schedule: tuple | None = None,
+                   freeze_precond: bool = False):
     """``optimize(n)`` on the chain+Woodbury path: n GN iterations, oplus
     update. ``order`` solves under a slot permutation (the result is in
     original slot order); ``return_dropped`` adds the largest loop-edge
-    overflow count."""
+    overflow count (per graph for a batch).
+
+    ``cg_schedule`` caps CG per GN iteration (one budget for each, at most
+    ``cg_iters``). ``freeze_precond`` builds the preconditioner once, from
+    the first linearization, and reuses it; a GN iteration whose chi2
+    :func:`_freeze_diverged` flags is redone with a fresh preconditioner,
+    per graph. The guard reads the number of flagged graphs on the host
+    once per GN iteration (not per graph) and computes the redo only when
+    one was flagged (for the whole batch, then selected per graph);
+    :data:`FREEZE_REDOS` counts the graphs redone."""
     if order is not None:
         inv = inverse_permutation(order).long()
         gp, dropped = optimize_chain(
             permute_vertices(g, order), iterations, edge_mask, loop_cap,
-            cg_tol, cg_iters, return_dropped=True, damp=damp)
-        out = dataclasses.replace(g, poses=gp.poses[inv])
+            cg_tol, cg_iters, return_dropped=True, damp=damp,
+            cg_schedule=cg_schedule, freeze_precond=freeze_precond)
+        out = dataclasses.replace(g, poses=gp.poses[..., inv, :])
         return (out, dropped) if return_dropped else out
 
-    dmax = torch.zeros((), dtype=torch.int32, device=g.poses.device)
+    if cg_schedule is None:
+        sched = (cg_iters,) * iterations
+    else:
+        assert len(cg_schedule) == iterations, \
+            "cg_schedule needs one CG budget per GN iteration"
+        sched = tuple(min(cg_iters, int(c)) for c in cg_schedule)
+    dmax = torch.zeros(g.poses.shape[:-2], dtype=torch.int32,
+                       device=g.poses.device)
     table = _edge_table(g, edge_mask)
-    for _ in range(iterations):
+    pst = None
+    if freeze_precond:
+        td0, _, loops0, _ = _assemble(g, edge_mask, loop_cap, damp=damp,
+                                      table=table)
+        pst = _precond_setup(td0, loops0)
+    for budget in sched:
         dx, dropped = _chain_delta_impl(g, edge_mask, loop_cap,
-                                        cg_tol=cg_tol, cg_iters=cg_iters,
-                                        damp=damp, table=table)
-        g = dataclasses.replace(g, poses=se2.oplus(g.poses, dx))
+                                        cg_tol=cg_tol, cg_iters=budget,
+                                        damp=damp, table=table, pst=pst)
+        poses = se2.oplus(g.poses, dx)
+        if pst is not None:
+            bad = _freeze_diverged(chi2(g, edge_mask),
+                                   chi2(dataclasses.replace(g, poses=poses),
+                                        edge_mask))
+            n_bad = int(torch.sum(bad.to(torch.int32)))
+            if n_bad:
+                FREEZE_REDOS["optimize_chain"] += n_bad
+                dx2, dr2 = _chain_delta_impl(g, edge_mask, loop_cap,
+                                             cg_tol=cg_tol, cg_iters=budget,
+                                             damp=damp, table=table)
+                poses = torch.where(per(bad, poses),
+                                    se2.oplus(g.poses, dx2), poses)
+                dropped = torch.where(bad, dr2, dropped)
+        g = dataclasses.replace(g, poses=poses)
         dmax = torch.maximum(dmax, dropped)
     return (g, dmax) if return_dropped else g
 
@@ -554,27 +701,42 @@ def marginal_covariance_chain(g: PoseGraph, query: torch.Tensor,
     on the chain+Woodbury path: each of the 3Q unit columns is a
     preconditioned CG solve on the true H (one linearization, one
     factorization, one Woodbury correction for all), batched over
-    columns, each column with its own exit."""
+    columns, each column with its own exit. A batch takes ``query``
+    ``[Q]`` (every graph) or ``[B, Q]`` and gives ``[B, Q, 3, 3]``."""
     if order is not None:
         inv = inverse_permutation(order).long()
         return marginal_covariance_chain(
             permute_vertices(g, order), inv[query.long()], edge_mask,
             loop_cap, cg_tol, cg_iters, None, damp)
-    n = g.poses.shape[0]
+    n = g.poses.shape[-2]
     dt = g.poses.dtype
     dev = g.poses.device
     td, _, loops, _ = _assemble(g, edge_mask, loop_cap, damp=damp)
     pst = _precond_setup(td, loops)
+    one = torch.ones((), dtype=dt, device=dev)
+    hmv = lambda v: _h_matvec(td, loops, v)           # noqa: E731
+    prec = lambda r: _precond(pst, r)                 # noqa: E731
+    if g.poses.dim() == 3:
+        b = g.poses.shape[0]
+        q = (query.expand(b, -1) if query.dim() == 1 else query).long()
+        nq = q.shape[1]
+        qs = torch.repeat_interleave(q, 3, dim=1)               # [B,3Q]
+        cs = torch.arange(3, device=dev).repeat(nq)             # [3Q]
+        rhs = ((torch.arange(n, device=dev)[:, None] == qs[..., None, None])
+               & (torch.arange(3, device=dev) == cs[:, None, None])
+               ).to(dt)                                         # [B,3Q,N,3]
+        x = _pcg_best(hmv, prec, rhs, one, cg_tol * cg_tol, cg_iters)
+        cols = torch.gather(x, 2, qs[..., None, None].expand(
+            b, 3 * nq, 1, 3))[:, :, 0]                           # [B,3Q,3]
+        sig = cols.reshape(b, nq, 3, 3).transpose(-1, -2)
+        return 0.5 * (sig + sig.transpose(-1, -2))
     q = query.shape[0]
     qs = torch.repeat_interleave(query.long(), 3)               # [3Q]
     cs = torch.arange(3, device=dev).repeat(q)                  # [3Q]
     ar = torch.arange(3 * q, device=dev)
     rhs = torch.zeros((3 * q, n, 3), dtype=dt, device=dev)
     rhs[ar, qs, cs] = torch.ones((), dtype=dt, device=dev)
-    one = torch.ones((), dtype=dt, device=dev)
-    x = _pcg_best(lambda v: _h_matvec(td, loops, v),
-                  lambda r: _precond(pst, r), rhs, one, cg_tol * cg_tol,
-                  cg_iters)
+    x = _pcg_best(hmv, prec, rhs, one, cg_tol * cg_tol, cg_iters)
     cols = x[ar, qs]                                            # [3Q, 3]
     sig = cols.reshape(q, 3, 3).transpose(-1, -2)               # rows × cols
     return 0.5 * (sig + sig.transpose(-1, -2))

@@ -66,5 +66,25 @@ def edge_table(e_ij: torch.Tensor, active: torch.Tensor,
                n: int) -> torch.Tensor:
     """The segment table of the ends ``[vi; vj]`` of the active edges:
     contribution ``k < E`` is edge ``k``'s ``i`` end, ``E + k`` its ``j``
-    end."""
-    return segment_table(e_ij.T.reshape(-1), torch.cat([active, active]), n)
+    end. For a batch (``e_ij [B, E, 2]``, ``active [B, E]``) the rows are
+    the flattened ``[B·N]`` vertices (graph ``b``'s at ``b·N ..``) and the
+    contributions the flattened ``[2, B, E]`` ends (:func:`ends_sum`); one
+    graph is the batch of one."""
+    flat = e_ij.long().reshape(-1, e_ij.shape[-2], 2)
+    b = flat.shape[0]
+    flat = flat + n * torch.arange(b, device=e_ij.device)[:, None, None]
+    act = active.reshape(-1)
+    return segment_table(flat.permute(2, 0, 1).reshape(-1),
+                         torch.cat([act, act]), b * n)
+
+
+def ends_sum(table: torch.Tensor, at_i: torch.Tensor, at_j: torch.Tensor,
+             batch_dims: int = 1) -> torch.Tensor:
+    """Per vertex ``[*B, N, ...]``, the sum of the edges' ``i`` end
+    contributions ``at_i [*B, E, ...]`` and ``j`` end contributions
+    ``at_j`` through an :func:`edge_table` (``batch_dims`` leading batch
+    axes, 0 or 1)."""
+    lead = at_i.shape[:batch_dims]
+    out = segment_sum(table, torch.cat([at_i.flatten(0, batch_dims),
+                                        at_j.flatten(0, batch_dims)]))
+    return out.unflatten(0, lead + (table.shape[0] // lead.numel(),))

@@ -26,6 +26,20 @@ One substitution of a TPU-only form:
 
 The reference's ``lax.cond`` between the chain band and PCG reads its
 predicate on the host here: one device-to-host read per banded call.
+
+**Batches of graphs.** Every entry point also takes a graph with a leading
+batch axis (poses ``[B, N, 3]``, the layout of ``sim/graphs.build_batch``):
+the reference ``vmap``s these functions over such a batch. The dense band
+assembles ``[B, 3N, 3N]`` by batched one-hot products
+(:func:`batched_normal_eq`), solves by batched Cholesky or by the SPD
+inverse and CG polish with one exit per graph. The ``*_auto`` entry points
+read the per-graph chain predicate once for the whole batch, run each band
+on the sub-batch that takes it and put the results back in batch order
+(what ``vmap`` of the reference's ``lax.cond`` computes). Batch-1 calls
+keep their own code and bits.
+
+The reference's ``CG_MRSLAM_CHOLESKY`` environment switch has no
+counterpart: callers pass ``chol``.
 """
 
 from __future__ import annotations
@@ -36,7 +50,7 @@ from typing import NamedTuple
 
 import torch
 
-from cg_mrslam_tpu_torch.core.graph import PoseGraph, unpack_info
+from cg_mrslam_tpu_torch.core.graph import PoseGraph, degrees, unpack_info
 from cg_mrslam_tpu_torch.core.linearize import chi2, linearize
 from cg_mrslam_tpu_torch.solver import chain as CH
 from cg_mrslam_tpu_torch.solver.pcg import (marginal_covariance_pcg,
@@ -66,12 +80,39 @@ def _free_mask(g: PoseGraph, edge_mask: torch.Tensor) -> torch.Tensor:
     """Free vertices: live, not gauge-fixed, and touched by at least one
     active edge (unconstrained vertices would make H singular, so they are
     pinned like fixed vertices)."""
-    n = g.poses.shape[0]
-    em = edge_mask.to(torch.int32)
-    deg = torch.zeros((n,), dtype=torch.int32, device=g.poses.device)
-    deg.index_add_(0, g.e_ij[:, 0].long(), em)
-    deg.index_add_(0, g.e_ij[:, 1].long(), em)
+    deg = degrees(g.e_ij, edge_mask, g.poses.shape[-2])
     return g.vmask & ~g.fixed & (deg > 0)
+
+
+def batched_normal_eq(poses, e_ij, e_z, e_info, mask):
+    """H ``[B, 3N, 3N]``, b ``[B, 3N]`` and degrees ``[B, N]`` of a batch
+    over the edges of ``mask`` (``sharding`` passes one edge shard), every
+    block summed by batched products with the one-hot endpoint matrices (a
+    fixed order)."""
+    bl, n = poses.shape[:2]
+    el = e_ij.shape[1]
+    dt = poses.dtype
+    e, Ji, Jj = linearize(poses, e_ij, e_z)
+    omega = unpack_info(e_info) * mask.to(dt)[..., None, None]
+    JiT_O = Ji.transpose(-1, -2) @ omega
+    JjT_O = Jj.transpose(-1, -2) @ omega
+    Hii, Hij, Hjj = JiT_O @ Ji, JiT_O @ Jj, JjT_O @ Jj
+    bi = (JiT_O @ e[..., None])[..., 0]
+    bj = (JjT_O @ e[..., None])[..., 0]
+    ar = torch.arange(n, device=poses.device)
+    oi = (e_ij[..., 0, None] == ar).to(dt)                     # [B,E,N]
+    oj = (e_ij[..., 1, None] == ar).to(dt)
+    oiT, ojT = oi.transpose(1, 2), oj.transpose(1, 2)
+    diag = (oiT @ Hii.reshape(bl, el, 9)
+            + ojT @ Hjj.reshape(bl, el, 9)).reshape(bl, n, 3, 3)
+    off = (oiT @ (Hij.reshape(bl, el, 9, 1) * oj[:, :, None, :]).reshape(
+        bl, el, 9 * n)).reshape(bl, n, 3, 3, n).permute(0, 1, 2, 4, 3)
+    H4 = off + off.permute(0, 3, 4, 1, 2)                     # [B,a,i,b,j]
+    H4 = H4 + diag[:, :, :, None, :] * torch.eye(
+        n, dtype=dt, device=poses.device)[None, :, None, :, None]
+    H = H4.reshape(bl, 3 * n, 3 * n)
+    b = (oiT @ bi + ojT @ bj).reshape(bl, 3 * n)
+    return H, b, degrees(e_ij, mask, n)
 
 
 def build_normal_equations(g: PoseGraph,
@@ -79,10 +120,17 @@ def build_normal_equations(g: PoseGraph,
                            ) -> NormalEq:
     """Assemble H = Σ JᵀΩJ and b = Σ JᵀΩe over active edges: the four 3×3
     blocks of every edge summed into an ``[N, 3, N, 3]`` block array by
-    one-hot products (a fixed order; bit-identical on repeat)."""
-    n = g.poses.shape[0]
+    one-hot products (a fixed order; bit-identical on repeat). A batch
+    gives ``[B, 3N, 3N]``."""
+    n = g.poses.shape[-2]
     dt = g.poses.dtype
     emask_b = g.emask if edge_mask is None else edge_mask
+    if g.poses.dim() == 3:
+        H, bv, deg = batched_normal_eq(g.poses, g.e_ij, g.e_z, g.e_info,
+                                       emask_b)
+        free = g.vmask & ~g.fixed & (deg > 0)
+        return NormalEq(H=H, b=bv, free3=torch.repeat_interleave(
+            free, 3, dim=-1).to(dt))
     mask = emask_b.to(dt)
 
     e, Ji, Jj = linearize(g.poses, g.e_ij, g.e_z)
@@ -116,8 +164,8 @@ def build_normal_equations(g: PoseGraph,
 
 def _gauge_fix(H: torch.Tensor, b: torch.Tensor, free3: torch.Tensor):
     """Project out fixed/unused coordinates; unit diagonal keeps H PD."""
-    Hf = H * free3[:, None] * free3[None, :]
-    Hf = Hf + torch.diag(1.0 - free3)
+    Hf = H * free3[..., :, None] * free3[..., None, :]
+    Hf = Hf + torch.diag_embed(1.0 - free3)
     return Hf, b * free3
 
 
@@ -140,13 +188,15 @@ def solve_normal_equations(eq: NormalEq,
     nothing (the reference adds exact zeros): the live path's operations
     and bits stay as they were."""
     H, b = _gauge_fix(eq.H, eq.b, eq.free3)
+    bd = H.dim() - 2
     if isinstance(damping, torch.Tensor) or damping != 0.0:
         lam = torch.as_tensor(damping, dtype=H.dtype, device=H.device)
-        H = H + torch.diag(lam * eq.free3)
+        H = H + torch.diag_embed(lam * eq.free3)
     if chol:
-        dx = -torch.cholesky_solve(b[:, None], _cholesky(H))[:, 0]
+        dx = -torch.cholesky_solve(b[..., None], _cholesky(H))[..., 0]
     else:
-        dx = -pcg_refine(H, b[:, None], spd_inverse(H))[:, 0]
+        dx = -pcg_refine(H, b[..., None], spd_inverse(H, batch_dims=bd),
+                         batch_dims=bd)[..., 0]
     return dx * eq.free3
 
 
@@ -157,7 +207,8 @@ def gn_step(g: PoseGraph, edge_mask: torch.Tensor | None = None,
     is the Levenberg–Marquardt λ."""
     dx = solve_normal_equations(build_normal_equations(g, edge_mask),
                                 damping, chol=chol)
-    return dataclasses.replace(g, poses=se2.oplus(g.poses, dx.reshape(-1, 3)))
+    return dataclasses.replace(g, poses=se2.oplus(g.poses,
+                                                  dx.reshape(g.poses.shape)))
 
 
 def optimize(g: PoseGraph, iterations: int = 5,
@@ -174,14 +225,16 @@ def optimize(g: PoseGraph, iterations: int = 5,
             g = gn_step(g, edge_mask, chol=True)
         return g
     minv = None
+    bd = g.poses.dim() - 2
     for _ in range(iterations):
         eq = build_normal_equations(g, edge_mask)
         H, b = _gauge_fix(eq.H, eq.b, eq.free3)
         if minv is None:
-            minv = spd_inverse(H)
-        dx = -pcg_refine(H, b[:, None], minv, tol=1e-7)[:, 0] * eq.free3
-        g = dataclasses.replace(g, poses=se2.oplus(g.poses,
-                                                   dx.reshape(-1, 3)))
+            minv = spd_inverse(H, batch_dims=bd)
+        dx = -pcg_refine(H, b[..., None], minv, tol=1e-7,
+                         batch_dims=bd)[..., 0] * eq.free3
+        g = dataclasses.replace(g, poses=se2.oplus(
+            g.poses, dx.reshape(g.poses.shape)))
     return g
 
 
@@ -195,17 +248,43 @@ def _chainable(g, edge_mask, loop_cap, order) -> bool:
     return bool(CH.chainable(g, edge_mask, loop_cap=loop_cap, order=order))
 
 
+def _take(g: PoseGraph, idx: torch.Tensor) -> PoseGraph:
+    """The graphs ``idx`` of a batch."""
+    return PoseGraph(**{f.name: getattr(g, f.name)[idx]
+                        for f in dataclasses.fields(g)})
+
+
+def _split_bands(g, edge_mask, loop_cap, order, entry, chain_fn, pcg_fn,
+                 out_like):
+    """Each graph of a batch through the chain band where it is chainable
+    and PCG where it is not: one host read of the per-graph predicate for
+    the whole batch, each band run on its sub-batch, the results put back
+    in batch order in a tensor like ``out_like`` ``[B, ...]``."""
+    ok = CH.chainable(g, edge_mask, loop_cap=loop_cap, order=order).cpu()
+    out = torch.empty_like(out_like)
+    for band, fn, sel in (("chain", chain_fn, ok), ("pcg", pcg_fn, ~ok)):
+        idx = torch.nonzero(sel).reshape(-1).to(out.device)
+        if idx.numel():
+            BAND_CALLS[entry, band] += idx.numel()
+            em = edge_mask if edge_mask is None else edge_mask[idx]
+            out[idx] = fn(_take(g, idx), em, idx)
+    return out
+
+
 def auto_backend(g: PoseGraph, edge_mask: torch.Tensor | None = None,
                  loop_cap: int = 64, order: torch.Tensor | None = None,
                  chol: bool = False) -> torch.Tensor:
     """Which backend :func:`optimize_auto` takes on this graph — ``0``
-    dense, ``1`` chain+Woodbury, ``2`` PCG (an int32 device scalar)."""
+    dense, ``1`` chain+Woodbury, ``2`` PCG (an int32 device scalar; ``[B]``
+    for a batch)."""
     n = g.poses.shape[-2]
     dev = g.poses.device
     if n > PCG_MIN:
-        return torch.full((), 2, dtype=torch.int32, device=dev)
+        return torch.full(g.poses.shape[:-2], 2, dtype=torch.int32,
+                          device=dev)
     if n <= _dense_max(chol):
-        return torch.zeros((), dtype=torch.int32, device=dev)
+        return torch.zeros(g.poses.shape[:-2], dtype=torch.int32,
+                           device=dev)
     ok = CH.chainable(g, edge_mask, loop_cap=loop_cap, order=order)
     return torch.where(ok, 1, 2).to(torch.int32)
 
@@ -220,8 +299,20 @@ def optimize_auto(g: PoseGraph, iterations: int = 5,
     ``DENSE_MAX`` (``DENSE_MAX_CHOL`` with ``chol``); above it the chain
     band where :func:`solver.chain.chainable` holds and PCG otherwise;
     PCG above ``PCG_MIN``. ``order`` is the (owner, keyframe) slot
-    permutation of merged multi-robot graphs."""
+    permutation of merged multi-robot graphs (one for every graph of a
+    batch)."""
     n = g.poses.shape[-2]
+    if g.poses.dim() == 3 and _dense_max(chol) < n <= PCG_MIN:
+        poses = _split_bands(
+            g, edge_mask, loop_cap, order, "optimize_auto",
+            lambda gs, em, _: CH.optimize_chain(
+                gs, iterations=iterations, edge_mask=em, loop_cap=loop_cap,
+                order=order, cg_iters=chain_cg_iters,
+                cg_tol=chain_cg_tol).poses,
+            lambda gs, em, _: optimize_pcg(
+                gs, iterations=iterations, edge_mask=em, cg_iters=pcg_iters,
+                order=order).poses, g.poses)
+        return dataclasses.replace(g, poses=poses)
     if n > PCG_MIN:
         BAND_CALLS["optimize_auto", "pcg"] += 1
         return optimize_pcg(g, iterations=iterations, edge_mask=edge_mask,
@@ -250,8 +341,20 @@ def marginal_covariance_auto(g: PoseGraph, query: torch.Tensor,
                              chol: bool = False) -> torch.Tensor:
     """``marginal_covariance`` with the same banding as
     :func:`optimize_auto` (chain-preconditioned CG column solves above the
-    dense band, matrix-free PCG where the graph is not chainable)."""
+    dense band, matrix-free PCG where the graph is not chainable). A batch
+    takes ``query`` ``[Q]`` (every graph) or ``[B, Q]``."""
     n = g.poses.shape[-2]
+    if g.poses.dim() == 3 and n > _dense_max(chol):
+        b = g.poses.shape[0]
+        q = query.expand(b, -1) if query.dim() == 1 else query
+        like = g.poses.new_empty((b, q.shape[1], 3, 3))
+        return _split_bands(
+            g, edge_mask, loop_cap, order, "marginal_covariance_auto",
+            lambda gs, em, idx: CH.marginal_covariance_chain(
+                gs, q[idx], em, loop_cap=loop_cap, order=order,
+                cg_iters=chain_cg_iters, cg_tol=chain_cg_tol),
+            lambda gs, em, idx: marginal_covariance_pcg(
+                gs, q[idx], em, cg_iters=pcg_cg_iters, order=order), like)
     if n <= _dense_max(chol):
         BAND_CALLS["marginal_covariance_auto", "dense"] += 1
         return marginal_covariance(g, query, edge_mask, chol=chol)
@@ -314,7 +417,10 @@ def marginal_covariance(g: PoseGraph, query: torch.Tensor,
     ``query [Q]`` under the current linearization and gauge (g2o
     ``computeMarginals``): the queried columns of H⁻¹, by one Cholesky
     factorization (``chol``) or by the SPD inverse refined with the dense
-    CG polish."""
+    CG polish. A batch takes ``query`` ``[Q]`` (every graph) or ``[B, Q]``
+    and gives ``[B, Q, 3, 3]``."""
+    if g.poses.dim() == 3:
+        return _marginal_covariance_batched(g, query, edge_mask, chol)
     eq = build_normal_equations(g, edge_mask)
     H, _ = _gauge_fix(eq.H, eq.b, eq.free3)
     # tiny jitter keeps H invertible for degenerate caller input
@@ -333,3 +439,24 @@ def marginal_covariance(g: PoseGraph, query: torch.Tensor,
     Xq = X[cols.reshape(-1)].reshape(q, 3, q, 3)
     ar = torch.arange(q, device=dev)
     return Xq[ar, :, ar, :]                                # [Q,3,3]
+
+
+def _marginal_covariance_batched(g: PoseGraph, query: torch.Tensor,
+                                 edge_mask, chol: bool) -> torch.Tensor:
+    eq = build_normal_equations(g, edge_mask)
+    H, _ = _gauge_fix(eq.H, eq.b, eq.free3)
+    b, n3 = H.shape[:2]
+    dev = H.device
+    H = H + 1e-6 * torch.eye(n3, dtype=H.dtype, device=dev)
+    q = (query.expand(b, -1) if query.dim() == 1 else query).long()
+    nq = q.shape[1]
+    cols = (3 * q[..., None] + torch.arange(3, device=dev)).reshape(b, -1)
+    rhs = (torch.arange(n3, device=dev)[None, :, None]
+           == cols[:, None, :]).to(H.dtype)                  # [B,3N,3Q]
+    if chol:
+        X = torch.cholesky_solve(rhs, _cholesky(H))
+    else:
+        X = pcg_refine(H, rhs, spd_inverse(H, batch_dims=1), batch_dims=1)
+    Xq = torch.gather(X, 1, cols[..., None].expand(-1, -1, 3 * nq))
+    Xq = Xq.reshape(b, nq, 3, nq, 3)
+    return torch.diagonal(Xq, dim1=1, dim2=3).permute(0, 3, 1, 2)

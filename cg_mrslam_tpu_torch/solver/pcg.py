@@ -13,6 +13,11 @@ The reference's ``lax.scan``s of fixed length freeze their state once a
 ``done`` test passes; here they are :func:`solver.spd.masked_loop`s with
 the same freeze, which stop early once every system is frozen (the same
 iterates).
+
+Every entry point also takes a graph with a leading batch axis (the
+reference ``vmap``s over it) and one ``order`` for every graph: one
+segment table over the batch, and each graph's CG freezes on its own
+``done`` test. Batch-1 calls keep their own operations and bits.
 """
 
 from __future__ import annotations
@@ -22,12 +27,14 @@ from typing import NamedTuple
 
 import torch
 
-from cg_mrslam_tpu_torch.core.graph import (PoseGraph, inverse_permutation,
+from cg_mrslam_tpu_torch.core.graph import (PoseGraph, degrees,
+                                            inverse_permutation,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
-from cg_mrslam_tpu_torch.solver.chain import GROUP, _cr_apply, _cr_factor
-from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, segment_sum
-from cg_mrslam_tpu_torch.solver.spd import masked_loop
+from cg_mrslam_tpu_torch.solver.chain import (GROUP, _cr_apply, _cr_factor,
+                                              _rows_of)
+from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, ends_sum
+from cg_mrslam_tpu_torch.solver.spd import masked_loop, per
 from cg_mrslam_tpu_torch.utils import se2
 
 
@@ -43,6 +50,9 @@ class EdgeFactors(NamedTuple):
     table: torch.Tensor   # [N, W] each vertex's active edge ends
     hvp_edge: torch.Tensor  # [N, W] the edge of each table entry
     hvp_J: torch.Tensor     # [N, W, 3, 3] its Jacobian at this vertex (0: pad)
+    # (a batch: the per-edge and per-vertex fields with a leading [B]; the
+    # table, hvp_edge and hvp_J over the flattened [B·N] vertices and
+    # [B·E] edges)
 
 
 def _edge_table(g: PoseGraph, edge_mask) -> torch.Tensor:
@@ -50,7 +60,7 @@ def _edge_table(g: PoseGraph, edge_mask) -> torch.Tensor:
     solve, so built once (one host read) and passed to every
     :func:`_factorize`."""
     mask = g.emask if edge_mask is None else edge_mask
-    return edge_table(g.e_ij, mask, g.poses.shape[0])
+    return edge_table(g.e_ij, mask, g.poses.shape[-2])
 
 
 def _factorize(g: PoseGraph, edge_mask,
@@ -58,33 +68,41 @@ def _factorize(g: PoseGraph, edge_mask,
     mask = g.emask if edge_mask is None else edge_mask
     if table is None:
         table = _edge_table(g, edge_mask)
+    nb = g.poses.dim() - 2
     dt = g.poses.dtype
     dev = g.poses.device
     e, Ji, Jj = linearize(g.poses, g.e_ij, g.e_z)
-    omega = unpack_info(g.e_info) * mask.to(dt)[:, None, None]
-    JiT_O = Ji.transpose(1, 2) @ omega
-    JjT_O = Jj.transpose(1, 2) @ omega
-    bi = (JiT_O @ e[:, :, None])[:, :, 0]
-    bj = (JjT_O @ e[:, :, None])[:, :, 0]
+    omega = unpack_info(g.e_info) * mask.to(dt)[..., None, None]
+    JiT_O = Ji.transpose(-1, -2) @ omega
+    JjT_O = Jj.transpose(-1, -2) @ omega
+    bi = (JiT_O @ e[..., None])[..., 0]
+    bj = (JjT_O @ e[..., None])[..., 0]
     Hii = JiT_O @ Ji
     Hjj = JjT_O @ Jj
 
-    n = g.poses.shape[0]
-    vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
-    b = segment_sum(table, torch.cat([bi, bj]))
-    diag = segment_sum(table, torch.cat([Hii, Hjj]))
-    em = mask.to(torch.int32)
-    deg = torch.zeros((n,), dtype=torch.int32, device=dev)
-    deg.index_add_(0, vi, em)
-    deg.index_add_(0, vj, em)
-    free = g.vmask & ~g.fixed & (deg > 0)
+    free = g.vmask & ~g.fixed & (degrees(g.e_ij, mask, g.poses.shape[-2])
+                                 > 0)
+    b = ends_sum(table, bi, bj, nb)
+    diag = ends_sum(table, Hii, Hjj, nb)
+    Jf, Jjf = Ji.flatten(0, nb), Jj.flatten(0, nb)
     # the table's entries as (edge, Jacobian) pairs for the HVP: entry
-    # k < E is edge k's i end, E + k its j end, 2E the zero pad
-    ne = Ji.shape[0]
+    # k < E is edge k's i end, E + k its j end, 2E the zero pad (E: the
+    # batch's edges, flattened)
+    ne = Jf.shape[0]
     edge_of = torch.arange(2 * ne + 1, device=dev) % ne
-    J2 = torch.cat([Ji, Jj, torch.zeros_like(Ji[:1])])
+    J2 = torch.cat([Jf, Jjf, torch.zeros_like(Jf[:1])])
     return EdgeFactors(Ji=Ji, Jj=Jj, omega=omega, b=b, diag=diag, free=free,
                        table=table, hvp_edge=edge_of[table], hvp_J=J2[table])
+
+
+def _freeb(free: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``free [..., N]`` as a float mask broadcasting against ``like
+    [..., *C, N, 3]`` (a batch's graph axis first)."""
+    fb = free[..., None].to(like.dtype)
+    if free.dim() == 2:
+        fb = fb.reshape((fb.shape[0],) + (1,) * (like.dim() - 3)
+                        + fb.shape[1:])
+    return fb
 
 
 def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
@@ -94,34 +112,36 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
             blocks) + λI,     λ = damp·mean-diag,
 
     factorized by cyclic reduction. Returns ``precond(r [..., N, 3])``."""
-    n = g.poses.shape[0]
+    nb = g.poses.dim() - 2
+    n = g.poses.shape[-2]
     dt = g.poses.dtype
     dev = g.poses.device
-    vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
+    vi, vj = g.e_ij[..., 0].long(), g.e_ij[..., 1].long()
     eye = torch.eye(3, dtype=dt, device=dev)
     free = f.free
-    freeb = free[:, None].to(dt)
-    diag_free = torch.where(free[:, None, None], f.diag,
+    diag_free = torch.where(free[..., None, None], f.diag,
                             torch.zeros_like(f.diag))
-    diag_scale = torch.sum(torch.diagonal(diag_free, dim1=-2, dim2=-1)) \
-        / torch.clamp(3.0 * torch.sum(free.to(dt)), min=1.0)
-    lam = damp * diag_scale + 1e-6
-    D = torch.where(free[:, None, None], f.diag + lam * eye, eye)
+    diag_scale = torch.sum(torch.diagonal(diag_free, dim1=-2, dim2=-1),
+                           dim=(-2, -1)) \
+        / torch.clamp(3.0 * torch.sum(free.to(dt), dim=-1), min=1.0)
+    lam = per(damp * diag_scale + 1e-6, f.diag)
+    D = torch.where(free[..., None, None], f.diag + lam * eye, eye)
 
     # chain off-diagonals: adjacent-slot edges with both ends free (omega
     # is already zero on masked edges)
-    cm = ((vj == vi + 1) & free[vi] & free[vj]).to(dt)
-    Hij = (f.Ji.transpose(1, 2) @ f.omega @ f.Jj) * cm[:, None, None]
-    L = segment_sum(f.table, torch.cat([Hij.transpose(1, 2),
-                                        torch.zeros_like(Hij)]))
-    L[n - 1] = 0.0
+    cm = ((vj == vi + 1) & free.gather(-1, vi) & free.gather(-1, vj)).to(dt)
+    Hij = (f.Ji.transpose(-1, -2) @ f.omega @ f.Jj) * cm[..., None, None]
+    L = ends_sum(f.table, Hij.transpose(-1, -2), torch.zeros_like(Hij), nb)
+    L[..., n - 1, :, :] = 0.0
 
     fact = _cr_factor(D, L, group=GROUP)
 
     def precond(r: torch.Tensor) -> torch.Tensor:
-        lead = r.shape[:-2]
-        cols = (r * freeb).reshape(-1, n, 3).permute(1, 2, 0)   # [N,3,C]
-        x = _cr_apply(fact, cols).permute(2, 0, 1).reshape(lead + (n, 3))
+        freeb = _freeb(free, r)
+        # the columns last: [*B, N, 3, C]
+        cols = (r * freeb).reshape(r.shape[:nb] + (-1, n, 3)).movedim(nb,
+                                                                      -1)
+        x = _cr_apply(fact, cols).movedim(-1, nb).reshape(r.shape)
         return x * freeb
 
     return precond
@@ -130,6 +150,8 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
 def _hvp(g: PoseGraph, f: EdgeFactors, x: torch.Tensor) -> torch.Tensor:
     """``H @ x`` for ``x [..., N, 3]``: gathers, and per vertex one sum over
     its table of edges (a fixed order)."""
+    if g.poses.dim() == 3:
+        return _hvp_batched(g, f, x)
     vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
     # w = Ω (Jᵢ xᵢ + Jⱼ xⱼ) per edge (the edges are the batch of each einsum
     # over all of x's leading columns); then y_n = Σ over n's table entries
@@ -142,6 +164,20 @@ def _hvp(g: PoseGraph, f: EdgeFactors, x: torch.Tensor) -> torch.Tensor:
     return y * f.free[:, None].to(x.dtype)
 
 
+def _hvp_batched(g: PoseGraph, f: EdgeFactors, x: torch.Tensor):
+    """:func:`_hvp` of a batch, ``x [B, ..., N, 3]``: the per-vertex sums
+    over the flattened edges of the batch's table."""
+    b, n = g.poses.shape[:2]
+    vi, vj = g.e_ij[..., 0].long(), g.e_ij[..., 1].long()
+    u = (torch.einsum("beij,b...ej->b...ei", f.Ji, _rows_of(x, vi))
+         + torch.einsum("beij,b...ej->b...ei", f.Jj, _rows_of(x, vj)))
+    w = torch.einsum("beij,b...ej->b...ei", f.omega, u)
+    w = w.movedim(0, -3).flatten(-3, -2)                 # [..., B·E, 3]
+    y = torch.einsum("nwji,...nwj->...ni", f.hvp_J, w[..., f.hvp_edge, :])
+    y = y.unflatten(-2, (b, n)).movedim(-3, 0)           # [B, ..., N, 3]
+    return y * _freeb(f.free, x)
+
+
 def _dot(a, b):
     return torch.sum(a * b, dim=(-2, -1))
 
@@ -151,27 +187,27 @@ def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
               table: torch.Tensor | None = None) -> torch.Tensor:
     """One GN update direction ``dx [N,3]`` by chain-preconditioned PCG
     on the true Hessian. As in the reference, a step whose new residual
-    falls below ``tol`` is not taken: the state stays frozen before it.
-    ``table``: the solve's :func:`_edge_table` (built here if not given)."""
+    falls below ``tol`` is not taken: the state stays frozen before it
+    (per graph of a batch). ``table``: the solve's :func:`_edge_table`
+    (built here if not given)."""
     f = _factorize(g, edge_mask, table)
-    freeb = f.free[:, None].to(g.poses.dtype)
     precond = _tridiag_precond(g, f)
-    b = -f.b * freeb
+    b = -f.b * _freeb(f.free, f.b)
     z0 = precond(b)
 
     def body(s):
         x, r, z, p, rz = s
         hp = _hvp(g, f, p)
         alpha = rz / torch.clamp(_dot(p, hp), min=1e-30)
-        x2 = x + alpha * p
-        r2 = r - alpha * hp
+        x2 = x + per(alpha, p) * p
+        r2 = r - per(alpha, hp) * hp
         z2 = precond(r2)
         rz2 = _dot(r2, z2)
         beta = rz2 / torch.clamp(rz, min=1e-30)
-        p2 = z2 + beta * p
+        p2 = z2 + per(beta, p) * p
         done = _dot(r2, r2) < tol
         new = (x2, r2, z2, p2, rz2)
-        return tuple(torch.where(done, o, nw)
+        return tuple(torch.where(per(done, o), o, nw)
                      for o, nw in zip(s, new)), ~done
 
     x, *_ = masked_loop(body, (torch.zeros_like(b), b, z0, z0, _dot(b, z0)),
@@ -188,7 +224,8 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
     column solves (one linearization and factorization for all 3Q unit
     columns, batched), with the dense path's semantics: gauge from
     ``g.fixed``, the same 1e-6 jitter, the identity block for a queried
-    vertex that is not free."""
+    vertex that is not free. A batch takes ``query`` ``[Q]`` (every
+    graph) or ``[B, Q]`` and gives ``[B, Q, 3, 3]``."""
     if order is not None:
         inv = inverse_permutation(order).long()
         return marginal_covariance_pcg(permute_vertices(g, order),
@@ -197,21 +234,30 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
     dt = g.poses.dtype
     dev = g.poses.device
     f = _factorize(g, edge_mask)
-    freeb = f.free[:, None].to(dt)
     eye = torch.eye(3, dtype=dt, device=dev)
-    n = g.poses.shape[0]
+    n = g.poses.shape[-2]
     precond = _tridiag_precond(g, f)
 
     def hvp(x):
-        return _hvp(g, f, x) + 1e-6 * x * freeb
+        return _hvp(g, f, x) + 1e-6 * x * _freeb(f.free, x)
 
-    q = query.shape[0]
-    qs = torch.repeat_interleave(query.long(), 3)              # [3Q]
-    cs = torch.arange(3, device=dev).repeat(q)                 # [3Q]
-    ar = torch.arange(3 * q, device=dev)
-    rhs = torch.zeros((3 * q, n, 3), dtype=dt, device=dev)
-    rhs[ar, qs, cs] = torch.ones((), dtype=dt, device=dev)
-    rhs = rhs * freeb
+    if g.poses.dim() == 3:
+        bsz = g.poses.shape[0]
+        qb = (query.expand(bsz, -1) if query.dim() == 1 else query).long()
+        q = qb.shape[1]
+        qs = torch.repeat_interleave(qb, 3, dim=1)              # [B,3Q]
+        cs = torch.arange(3, device=dev).repeat(q)              # [3Q]
+        rhs = ((torch.arange(n, device=dev)[:, None] == qs[..., None, None])
+               & (torch.arange(3, device=dev) == cs[:, None, None])
+               ).to(dt)                                         # [B,3Q,N,3]
+    else:
+        q = query.shape[0]
+        qs = torch.repeat_interleave(query.long(), 3)              # [3Q]
+        cs = torch.arange(3, device=dev).repeat(q)                 # [3Q]
+        ar = torch.arange(3 * q, device=dev)
+        rhs = torch.zeros((3 * q, n, 3), dtype=dt, device=dev)
+        rhs[ar, qs, cs] = torch.ones((), dtype=dt, device=dev)
+    rhs = rhs * _freeb(f.free, rhs)
 
     def col(v):
         return v[..., None, None]
@@ -228,15 +274,21 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
         p2 = z2 + col(beta) * p
         done = _dot(r, r) < tol
         new = (x2, r2, z2, p2, rz2)
-        return tuple(torch.where(col(done) if o.dim() > 1 else done, o, nw)
+        return tuple(torch.where(per(done, o), o, nw)
                      for o, nw in zip(s, new)), ~done
 
     z0 = precond(rhs)
     x, *_ = masked_loop(body, (torch.zeros_like(rhs), rhs, z0, z0,
                                _dot(rhs, z0)), cg_iters)
-    cols = x[ar, qs]                                           # [3Q, 3]
-    sig = cols.reshape(q, 3, 3).transpose(-1, -2)
-    sig = torch.where(f.free[query.long()][:, None, None], sig, eye)
+    if g.poses.dim() == 3:
+        cols = torch.gather(x, 2, qs[..., None, None].expand(
+            bsz, 3 * q, 1, 3))[:, :, 0]                          # [B,3Q,3]
+        sig = cols.reshape(bsz, q, 3, 3).transpose(-1, -2)
+        sig = torch.where(f.free.gather(1, qb)[..., None, None], sig, eye)
+    else:
+        cols = x[ar, qs]                                           # [3Q, 3]
+        sig = cols.reshape(q, 3, 3).transpose(-1, -2)
+        sig = torch.where(f.free[query.long()][:, None, None], sig, eye)
     return 0.5 * (sig + sig.transpose(-1, -2))
 
 
@@ -251,7 +303,7 @@ def optimize_pcg(g: PoseGraph, iterations: int = 5,
         inv = inverse_permutation(order).long()
         gp = optimize_pcg(permute_vertices(g, order), iterations, edge_mask,
                           cg_iters)
-        return dataclasses.replace(g, poses=gp.poses[inv])
+        return dataclasses.replace(g, poses=gp.poses[..., inv, :])
     table = _edge_table(g, edge_mask)
     for _ in range(iterations):
         dx = pcg_delta(g, edge_mask, cg_iters=cg_iters, table=table)

@@ -14,6 +14,12 @@ static budget in which a ``done`` flag freezes the state: the same
 iterates, and no host read per iteration. Every :data:`CHECK` iterations
 the host looks once whether anything is still running and stops early
 when nothing is (:func:`masked_loop`).
+
+Over a batch of independent problems (``batch_dims`` leading axes, the
+reference's ``vmap``), each problem keeps its own exit: its own worst
+residual decides when it stops, and a stopped problem stays frozen while
+the others run on. The host still looks once every :data:`CHECK`
+iterations, whatever the batch size.
 """
 
 from __future__ import annotations
@@ -37,6 +43,24 @@ def masked_loop(body, state, budget: int):
         if (k + 1) % CHECK == 0 and not bool(torch.any(active)):
             break
     return state
+
+
+def _worst(x: torch.Tensor, batch_dims: int) -> torch.Tensor:
+    """The largest entry of ``x`` within each of its leading
+    ``batch_dims`` axes' problems (over all of ``x`` when 0)."""
+    if batch_dims == 0:
+        return torch.amax(x)
+    if x.dim() == batch_dims:
+        return x
+    return torch.amax(x.flatten(batch_dims), dim=-1)
+
+
+def per(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-problem ``flag`` (its dims leading ``like``'s) shaped to
+    broadcast against ``like``."""
+    if flag.dim() == 0:
+        return flag
+    return flag.reshape(flag.shape + (1,) * (like.dim() - flag.dim()))
 
 
 def _gauss_jordan_inverse(a: torch.Tensor) -> torch.Tensor:
@@ -82,12 +106,15 @@ def _fro(r: torch.Tensor) -> torch.Tensor:
 
 
 def spd_inverse(h: torch.Tensor, refine: int = 2, max_refine: int = 48,
-                tol: float | None = None) -> torch.Tensor:
+                tol: float | None = None,
+                batch_dims: int = 0) -> torch.Tensor:
     """Explicit inverse of a batched SPD matrix ``[..., n, n]``: the
     recursion on the Jacobi-equilibrated matrix, then Newton–Schulz
     ``X ← X + X(I − HX)`` until the worst batch element's Frobenius
     residual is ≤ ``tol`` (at least ``refine``, at most ``max_refine``
-    steps). An element whose residual grows restarts from ``I/‖H‖∞``."""
+    steps). An element whose residual grows restarts from ``I/‖H‖∞``.
+    The first ``batch_dims`` axes are independent problems, each with
+    its own worst element and exit."""
     n = h.shape[-1]
     if tol is None:
         tol = 1e-4 if h.dtype == torch.float32 else 1e-11
@@ -111,7 +138,7 @@ def spd_inverse(h: torch.Tensor, refine: int = 2, max_refine: int = 48,
 
     def body(s):
         k, xc, rc, rn_arr, prev_worst = s
-        worst = torch.amax(rn_arr)
+        worst = _worst(rn_arr, batch_dims)
         improving = worst < 0.7 * prev_worst
         go = (k < refine) | ((k < max_refine) & (worst > tol)
                              & ((worst >= 0.25) | improving))
@@ -123,23 +150,28 @@ def spd_inverse(h: torch.Tensor, refine: int = 2, max_refine: int = 48,
         xn = torch.where(dd, seed, xn)
         r2 = torch.where(dd, r_seed, r2)
         rn2 = torch.where(diverged, rn_seed, rn2)
-        return (torch.where(go, k + 1, k), torch.where(go, xn, xc),
-                torch.where(go, r2, rc), torch.where(go, rn2, rn_arr),
+        return (torch.where(go, k + 1, k), torch.where(per(go, xc), xn, xc),
+                torch.where(per(go, rc), r2, rc),
+                torch.where(per(go, rn_arr), rn2, rn_arr),
                 torch.where(go, worst, prev_worst)), go
 
-    k0 = torch.zeros((), dtype=torch.int32, device=h.device)
+    k0 = torch.zeros(h.shape[:batch_dims], dtype=torch.int32,
+                     device=h.device)
     _, x, _, _, _ = masked_loop(body, (k0, x, r, rn, inf),
                                 max(refine, max_refine))
     return x * d[..., :, None] * d[..., None, :]
 
 
 def pcg_refine(h: torch.Tensor, b: torch.Tensor, minv: torch.Tensor,
-               max_iters: int = 64, tol: float = 1e-5) -> torch.Tensor:
+               max_iters: int = 64, tol: float = 1e-5,
+               batch_dims: int = 0) -> torch.Tensor:
     """Solve ``H X = B`` (``b [..., n, R]``, R right-hand sides, each its
     own CG) by dense preconditioned CG with ``minv`` as preconditioner and
     warm start, until the worst relative residual is ≤ ``tol`` or
     ``max_iters``. Breakdown guards zero the step instead of dividing by
-    ~0, so the result is finite for finite inputs."""
+    ~0, so the result is finite for finite inputs. The first
+    ``batch_dims`` axes are independent problems, each with its own worst
+    residual and exit."""
     x = minv @ b
     r = b - h @ x
     z = minv @ r
@@ -150,7 +182,7 @@ def pcg_refine(h: torch.Tensor, b: torch.Tensor, minv: torch.Tensor,
     def body(s):
         x, rr, p, rz = s
         rel = torch.sum(rr * rr, dim=-2) / bn
-        go = torch.amax(rel) > tol * tol
+        go = _worst(rel, batch_dims) > tol * tol
         hp = h @ p
         denom = torch.sum(p * hp, dim=-2)
         ok = denom > 1e-30
@@ -166,8 +198,10 @@ def pcg_refine(h: torch.Tensor, b: torch.Tensor, minv: torch.Tensor,
                                                   torch.ones_like(rz)),
                            torch.zeros_like(rz))
         p2 = z2 + p * beta[..., None, :]
-        return (torch.where(go, x2, x), torch.where(go, r2, rr),
-                torch.where(go, p2, p), torch.where(go, rz2, rz)), go
+        return (torch.where(per(go, x), x2, x),
+                torch.where(per(go, rr), r2, rr),
+                torch.where(per(go, p), p2, p),
+                torch.where(per(go, rz), rz2, rz)), go
 
     x, _, _, _ = masked_loop(body, (x, r, p, rz), max_iters)
     return x

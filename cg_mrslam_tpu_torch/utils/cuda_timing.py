@@ -56,17 +56,25 @@ def issue_floor_ms(loads: int, ghz: float) -> float:
     return loads / (SMS * LOADS_PER_CLOCK * ghz * 1e9) * 1e3
 
 
-def volume_bound(grid_bytes: int, b: int, t: int, p: int, n_off: int,
-                 n_out: int, n_kept: int):
-    """``(bound_ms, bound_by)`` of one score-volume call: the function's
+def volume_work(grid_bytes: int, b: int, t: int, p: int, n_off: int,
+                n_out: int, n_kept: int):
+    """``(bytes, operations)`` of one score-volume call: the function's
     own inputs, each read once — the grids it scores (``grid_bytes``),
     points [P,2] f32, valid [B,P] bool, bases [B,3] f32, thetas [T] f32 —
-    and its ``n_out`` output values written once, over the HBM rate,
-    against its adds (kept points x offsets per output volume) and
-    divides over the float32 rate. The cells, keep mask and count are
-    intermediates of the split between torch code and the kernel."""
+    and its ``n_out`` output values written once; its adds (kept points x
+    offsets per output volume) and divides. The cells, keep mask and count
+    are intermediates of the split between torch code and the kernel."""
     n_bytes = grid_bytes + p * 2 * 4 + b * p + b * 3 * 4 + t * 4 + n_out * 4
     n_ops = n_kept * n_off * (n_out // (b * t * n_off)) + n_out
+    return n_bytes, n_ops
+
+
+def volume_bound(grid_bytes: int, b: int, t: int, p: int, n_off: int,
+                 n_out: int, n_kept: int):
+    """``(bound_ms, bound_by)`` of one score-volume call: its
+    :func:`volume_work` bytes over the HBM rate against its operations
+    over the float32 rate."""
+    n_bytes, n_ops = volume_work(grid_bytes, b, t, p, n_off, n_out, n_kept)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops

@@ -1,8 +1,10 @@
 """Structured metrics and timing.
 
 Port of ``cg_mrslam_tpu/utils/metrics.py``: :class:`Recorder` is copied;
-:func:`trace` is a ``torch.profiler`` scope. The reference's roofline
-table holds TPU peaks and has no counterpart here.
+:func:`trace` is a ``torch.profiler`` scope; :func:`speed_of_light` keeps
+the reference's roofline arithmetic over the port's own peaks table
+(:data:`CHIP_PEAKS`), which holds an NVIDIA H100 SXM's published figures
+only.
 """
 
 from __future__ import annotations
@@ -78,3 +80,36 @@ def trace(log_dir: str) -> Iterator[None]:
     with torch.profiler.profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates
+# without sparsity, at the full 700 W power limit; a card set below it
+# runs slower): float32 outside the tensor cores, TF32 and BF16 on the
+# tensor cores, each beside the HBM3 rate. Published, not measured
+# (``utils/sol.py`` measures the ceilings on the card).
+CHIP_PEAKS = {
+    "h100_sxm": {"flops": 67e12, "hbm_gbs": 3.35e12},
+    "h100_sxm_tf32": {"flops": 495e12, "hbm_gbs": 3.35e12},
+    "h100_sxm_bf16": {"flops": 989e12, "hbm_gbs": 3.35e12},
+}
+PEAKS_SOURCE = "published: NVIDIA H100 SXM data sheet (dense, 700 W)"
+
+
+def speed_of_light(flops: float, bytes_moved: float, seconds: float,
+                   chip: str = "h100_sxm") -> dict:
+    """Roofline accounting against :data:`CHIP_PEAKS` ``[chip]``: the
+    achieved fraction of the compute and bandwidth peaks, and which bound
+    the work is closest to."""
+    peak = CHIP_PEAKS[chip]
+    f_frac = (flops / seconds) / peak["flops"] if seconds > 0 else 0.0
+    b_frac = (bytes_moved / seconds) / peak["hbm_gbs"] if seconds > 0 else 0.0
+    t_flops = flops / peak["flops"]
+    t_bytes = bytes_moved / peak["hbm_gbs"]
+    return {
+        "seconds": seconds,
+        "flops_frac_of_peak": f_frac,
+        "bw_frac_of_peak": b_frac,
+        "bound": "compute" if t_flops > t_bytes else "bandwidth",
+        "sol_seconds": max(t_flops, t_bytes),
+        "sol_frac": max(t_flops, t_bytes) / seconds if seconds > 0 else 0.0,
+    }

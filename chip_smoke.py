@@ -149,7 +149,32 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    process: integer leaves equal, floats within ``tests/test_fleet.py``'s
    bar; and the merged 1024 fixture's chain-preconditioned PCG solve (5 GN
    iterations of 96 CG) on the card, chi2 within 1% of the CPU's every
-   iteration. Every process group is joined with a 120 s timeout.
+   iteration. Every process group is joined with a 120 s timeout;
+13. the JAX bench's workloads (``bench.py``) at its sizes, each timed as its
+   ``timed`` does (one warm-up, then the median of distinct inputs) beside
+   solves/s, records in ``chiprun_out/phase13/bench.json``: (a) dense GN×5
+   (SPD inverse) of ``build_batch(1024)``: every chi2 below its start, 8
+   graphs within 1e-4 of batch-1 CPU solves, repeats bit-equal; the dense
+   reference point (16 hospital graphs of 1024 poses), chi2 printed; (b) the
+   chain band on ``build_hospital_batch(512)`` at ``bench.py``'s ``CHAIN_KW``:
+   dropped 0, mean chi2 below 0.05 of its start, the median distance from
+   the exact optimum within :data:`CHAIN_POSES`, two graphs' chi2 against
+   batch-1 CPU solves (:data:`CHAIN_CONVERGED`), two graphs with 12 closures
+   in float64 within
+   :data:`CHAIN_POSES_F64` of the CPU's, repeats bit-equal; graph 0 with
+   ``cg_schedule`` and with ``freeze_precond`` (the guard's redos and the
+   distance from the optimum printed), each below 1e-3 of its start; (c) the merged fixture, 512 graphs (the
+   PCG band, as ``auto_backend`` picks; 8 CG; mean chi2 below 1e-3 of its
+   start, two graphs within 1% of batch-1 CPU solves, element 0 beside the
+   dense CPU oracle 12.796) and 4096 as 8 chunks of 512; (d) PCG on one
+   65,536-pose graph (96 CG), chi2 below 1e-3 of its start; (e) the optimal
+   gauge at phase 6's first star as one batched condense: each candidate's
+   uncertainty within 1e-4 of its own condense on the card, the CPU's gauge,
+   the time beside the per-candidate loop's; (f) ``utils/sol.report()``,
+   each fraction in (0, 1.05]; (g) ``srslam`` at capacity 1024
+   (``bench.py``'s latency row) to :data:`LATENCY_TICKS`: K1 3 per keyframe,
+   finite chi2, a closure, ATE below odometry, at least 60 keyframes in
+   bucket 1024 and those off the dense band; latency p50/p99 per bucket.
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -160,12 +185,14 @@ when no CUDA device is available.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -233,6 +260,38 @@ FLEET_EXTRA_TICKS = 30
 SHARD_BATCH = (64, 64, 128)
 GROUP_TIMEOUT = 120.0
 MERGED = ROOT / "tests" / "fixtures" / "merged_2robot_1024.npz"
+# phase 13: the JAX bench's workloads at its sizes (bench.py): the chain
+# operating point (CHAIN_KW, :60), the merged PCG budget (:76), the dense
+# CPU oracle of merged element 0
+PHASE13_DIR = ROOT / "chiprun_out" / "phase13"
+CHAIN_KW = dict(loop_cap=64, cg_iters=24, cg_tol=1e-4)
+MERGED_PCG_ITERS = 8
+MERGED_ORACLE = 12.796
+# (g)'s depth, cut by time from the bench's 2300 ticks: phase 13 has ~150 s,
+# (a)-(f) take ~55 s, and a keyframe in bucket 1024 takes 1.1-1.9 s on one
+# H100 (the first 511 keyframes ~26 s); 2130 ticks is the shortest depth with
+# the 60 keyframes in bucket 1024 the phase must run (63: keyframe 512 comes
+# at tick 1897 and keyframe 574 at tick 2119, fixed by the odometry)
+LATENCY_TICKS = 2130
+# the median over a batch of float32 chain solves of each graph's largest
+# distance from the exact optimum (the ring's true poses: its measurements
+# are exact and vertex 0 is fixed), m and rad. From ~0.5 at the start, a
+# float32 solve ends anywhere from 0.002 to 0.05 from it as the rounding
+# goes, and about one in a hundred far off (128 graphs on the CPU: median
+# 0.007, p90 0.017, p99 0.43): CG's 1e-4 residual and the capacitance
+# inverse's float32 polish leave the ring's weakest modes (ROADMAP, Next)
+CHAIN_POSES = 0.02
+# five float64 GN iterations of the chain band on graphs with 12 closures
+# against the CPU's: rounding only (tests/test_torch_chain_f64.py; with 48
+# closures the capacitance inverse's polish turns on the last bits)
+CHAIN_POSES_F64 = 1e-6
+# the second check, chi2 of a chain solve against another: within 1%, or
+# both below 1e-4 of the start chi2, the reference's own bar of a converged
+# solve at this scale (tests/test_chain_solver.py::
+# test_bench_geometry_f32_convergence): below it both sit at the float32
+# noise floor, where a graph's chi2 moves over orders of magnitude with the
+# rounding
+CHAIN_CONVERGED = 1e-4
 
 
 def log(*a):
@@ -364,7 +423,8 @@ def ate(est: np.ndarray, gt: np.ndarray) -> float:
         (aligned[:, :2] - gt[:, :2]) ** 2, axis=1))))
 
 
-def run_slice(cfg, traj, fov, device, max_keyframes=None, capture=None):
+def run_slice(cfg, traj, fov, device, max_keyframes=None, capture=None,
+              max_ticks=None):
     from cg_mrslam_tpu_torch.pipeline.slam import SingleRobotSlam
 
     slam = SingleRobotSlam(cfg, traj.ranges.shape[1], traj.gt[0],
@@ -372,7 +432,7 @@ def run_slice(cfg, traj, fov, device, max_keyframes=None, capture=None):
                            device=device)
     cuda = slam.device.type == "cuda"
     kf_t, lat = [0], {}
-    for t in range(1, len(traj.gt)):
+    for t in range(1, min(len(traj.gt), max_ticks or len(traj.gt))):
         bucket = slam.runner.bucket(slam.state)[0]
         if cuda:
             torch.cuda.synchronize()
@@ -695,23 +755,46 @@ def run_mr(device, max_ticks=None, capture=None, matches=None,
     return sim, times, log
 
 
-def run_cli(*argv: str):
-    """``python -m cg_mrslam_tpu_torch argv`` in ``chiprun_out/cli/`` on the
-    card; fails unless it exits 0. Returns its stdout and wall seconds."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                       if p])
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "cg_mrslam_tpu_torch",
-                          *argv], cwd=CLI_DIR, env=env, capture_output=True,
-                         text=True)
-    wall = time.perf_counter() - t0
-    name = argv[argv.index("-o") + 1]
-    (CLI_DIR / f"{name}.log").write_text(res.stdout + res.stderr)
-    assert res.returncode == 0, (argv, res.returncode, res.stderr[-3000:])
-    log(f"cli: {' '.join(argv)}: exit 0 in {wall:.1f} s")
-    return res.stdout, wall
+class Cli:
+    """``python -m cg_mrslam_tpu_torch argv`` started in ``chiprun_out/cli/``
+    on the card; phase 9 starts its four runs together. Its standard output
+    goes to ``<o>.log``, its errors to ``<o>.err``."""
+
+    def __init__(self, *argv: str):
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        self.argv = argv
+        name = argv[argv.index("-o") + 1]
+        self.out, self.err = CLI_DIR / f"{name}.log", CLI_DIR / f"{name}.err"
+        self.t0 = time.perf_counter()
+        with open(self.out, "w") as fo, open(self.err, "w") as fe:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "cg_mrslam_tpu_torch", *argv],
+                cwd=CLI_DIR, env=env, stdout=fo, stderr=fe)
+        self.wall = None
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self):
+        self.proc.wait()
+        self.wall = time.perf_counter() - self.t0
+
+    def result(self):
+        """Waits for the run; fails unless it exited 0. Returns its
+        standard output and wall seconds."""
+        self.waiter.join()
+        rc = self.proc.returncode
+        assert rc == 0, (self.argv, rc, self.err.read_text()[-3000:])
+        log(f"cli: {' '.join(self.argv)}: exit 0 in {self.wall:.1f} s "
+            f"(the four runs of phase 9 together)")
+        return self.out.read_text(), self.wall
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 def keyframe_lines(stdout: str) -> list:
@@ -748,18 +831,40 @@ def read_map(base: Path):
 
 def phase_cli(cfg, traj, fov, slam, kf_t) -> None:
     """Phase 9: the command line (see the module docstring)."""
-    from cg_mrslam_tpu_torch.core.linearize import chi2
-    from cg_mrslam_tpu_torch.io import carmen, g2o
-    from cg_mrslam_tpu_torch.maps import occupancy as OCC
-    from cg_mrslam_tpu_torch.pipeline.slam import SingleRobotSlam
+    from cg_mrslam_tpu_torch.io import carmen
     from cg_mrslam_tpu_torch.sim import world as W
 
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     CLI_DIR.mkdir(parents=True)
     walls = W.hospital_world(40.0, 20.0, seed=0).segments
+    # the four runs start together (independent processes on the card);
+    # (c)'s log, the route's first 400 ticks, is written first
+    beams = traj.ranges.shape[1]
+    clf = CLI_DIR / "route.clf"
+    carmen.write(str(clf), traj.odom[:400], traj.ranges[:400], fov=fov,
+                 max_range=10.0, start_angle=-fov / 2,
+                 angular_step=fov / beams)
+    runs = [Cli("srslam", "-o", "smoke"),
+            Cli("srslam", "--ticks", str(RESUME_TICK), "-o", "half"),
+            Cli("srslam", "--carmen", str(clf), "-o", "carmen"),
+            Cli("cg_mrslam", "--nRobots", "2", "--modality", "sim",
+                "--ticks", "300", "-o", "mr")]
+    try:
+        cli_checks(cfg, traj, slam, kf_t, walls, runs)
+    finally:
+        for r in runs:
+            r.stop()
+
+
+def cli_checks(cfg, traj, slam, kf_t, walls, runs) -> None:
+    """Phase 9's checks of its four runs, in turn."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.io import g2o
+    from cg_mrslam_tpu_torch.maps import occupancy as OCC
+    from cg_mrslam_tpu_torch.pipeline.slam import SingleRobotSlam
 
     # (a) the srslam default deployment
-    out, _ = run_cli("srslam", "-o", "smoke")
+    out, _ = runs[0].result()
     kfl = keyframe_lines(out)
     n_kf = len(slam.infos)
     closures = sum(i.closures_added for i in slam.infos)
@@ -867,7 +972,7 @@ def phase_cli(cfg, traj, fov, slam, kf_t) -> None:
         + ", ".join(f"{k} {v:.1f} ms" for k, v in io_ms.items()))
 
     # (b) resume: half the route through the command line, the rest here
-    out, _ = run_cli("srslam", "--ticks", str(RESUME_TICK), "-o", "half")
+    out, _ = runs[1].result()
     n_half = len(keyframe_lines(out))
     assert n_half == int((kf_t[1:] < RESUME_TICK).sum()), n_half
     half = str(CLI_DIR / "robot-0-half.g2o")
@@ -892,19 +997,13 @@ def phase_cli(cfg, traj, fov, slam, kf_t) -> None:
     assert a_res < a_odo, (a_res, a_odo)
 
     # (c) a CARMEN log of the route's first 400 ticks
-    beams = traj.ranges.shape[1]
-    clf = CLI_DIR / "route.clf"
-    carmen.write(str(clf), traj.odom[:400], traj.ranges[:400], fov=fov,
-                 max_range=10.0, start_angle=-fov / 2,
-                 angular_step=fov / beams)
-    out, _ = run_cli("srslam", "--carmen", str(clf), "-o", "carmen")
+    out, _ = runs[2].result()
     n_c = len(keyframe_lines(out))
     assert n_c > 0 and (CLI_DIR / "robot-0-carmen.g2o").exists(), n_c
     log(f"cli: carmen: {n_c} keyframes")
 
     # (d) two robots in one process
-    out, _ = run_cli("cg_mrslam", "--nRobots", "2", "--modality", "sim",
-                     "--ticks", "300", "-o", "mr")
+    out, _ = runs[3].result()
     accepted = [int(line.rsplit("=", 1)[1]) for line in out.splitlines()
                 if line.startswith("robot ") and "accepted=" in line]
     assert len(accepted) == 2 and sum(accepted) >= 1, out[-2000:]
@@ -1149,6 +1248,27 @@ class MatchCapture:
         self._stars.clear()
 
 
+def first_star(matches):
+    """Phase 6's first star request ``(tick, state, peer, requested)``,
+    cut to the newest ``STAR_CAP`` boundary vertices (phase 11 (f) and
+    phase 13 (e))."""
+    from cg_mrslam_tpu_torch.core import graph as G
+
+    t, st, peer = matches.star
+    sel = st.in_closures[peer]
+    n_req = int(sel.sum())
+    if n_req > STAR_CAP:
+        score = torch.where(sel, st.slam.v_remote,
+                            torch.full_like(st.slam.v_remote, -1))
+        _, keep = G.first_k(score, STAR_CAP)
+        row = torch.zeros_like(sel)
+        row[keep] = True
+        in_c = st.in_closures.clone()
+        in_c[peer] = row
+        st = dataclasses.replace(st, in_closures=in_c)
+    return t, st, peer, n_req
+
+
 def new_hypothesis(st, out):
     """The hypothesis a ``try_match_parked`` call buffered, read on the
     host: ``(my vertex, matched vertex, z)``, or None when it matched
@@ -1207,11 +1327,8 @@ def on_cpu(args):
 def phase_matcher(slam, cfg, matches, sim, mlog, probes, ghz, udp):
     """Phase 11 (see the module docstring). Returns the kernel and probe
     records of the new shapes."""
-    import dataclasses
-
     import cg_mrslam_tpu_torch.matcher.search as search
     from cg_mrslam_tpu_torch import convert
-    from cg_mrslam_tpu_torch.core import graph as G
     from cg_mrslam_tpu_torch.core.linearize import chi2
     from cg_mrslam_tpu_torch.matcher import matching as M
     from cg_mrslam_tpu_torch.mr import mrslam as MR
@@ -1415,18 +1532,7 @@ def phase_matcher(slam, cfg, matches, sim, mlog, probes, ghz, udp):
         f"synchronized)")
 
     # (f) the optimal gauge at the first star of phase 6
-    t, st, peer = matches.star
-    sel = st.in_closures[peer]
-    n_req = int(sel.sum())
-    if n_req > STAR_CAP:
-        score = torch.where(sel, st.slam.v_remote,
-                            torch.full_like(st.slam.v_remote, -1))
-        _, keep = G.first_k(score, STAR_CAP)
-        row = torch.zeros_like(sel)
-        row[keep] = True
-        in_c = st.in_closures.clone()
-        in_c[peer] = row
-        st = dataclasses.replace(st, in_closures=in_c)
+    t, st, peer, n_req = first_star(matches)
     n_k = int(st.in_closures[peer].sum())
     st_cpu = convert.mr_state_from_numpy(convert.to_numpy(st), cpu)
     gn.BAND_CALLS.clear()
@@ -1954,6 +2060,429 @@ def phase_parallel(slam, cfg, traj, fov, infos, kf_t, sim, mlog, times,
         log(f"{name}: {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ phase 13
+
+
+def take(g, idx):
+    """Graphs ``idx`` of a batch (an int: one graph, batch-1)."""
+    from cg_mrslam_tpu_torch.core.graph import PoseGraph
+
+    return PoseGraph(**{f.name: getattr(g, f.name)[idx]
+                        for f in dataclasses.fields(g)})
+
+
+def to_cpu(g):
+    from cg_mrslam_tpu_torch.core.graph import PoseGraph
+
+    return PoseGraph(**{f.name: getattr(g, f.name).cpu()
+                        for f in dataclasses.fields(g)})
+
+
+def bench_timed(fn, g, reps: int = 4):
+    """``bench.py:175``'s ``timed``: one warm-up call on ``g``, then the
+    median wall seconds over ``reps`` calls on distinct inputs (poses +
+    1e-4·(k+1)), the card synchronized around each. Returns ``(seconds,
+    the warm-up call's output, all seconds)``."""
+    first = fn(g)
+    torch.cuda.synchronize()
+    ts = []
+    for k in range(reps):
+        gi = dataclasses.replace(g, poses=g.poses + 1e-4 * (k + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(gi)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)), first, ts
+
+
+def chain_close(got: float, want: float, start: float) -> bool:
+    """Two chain solves' chi2 agree (:data:`CHAIN_CONVERGED`)."""
+    return (abs(got - want) <= 0.01 * want
+            or max(got, want) <= CHAIN_CONVERGED * start)
+
+
+def pose_errs(a: torch.Tensor, b) -> torch.Tensor:
+    """Per graph of ``a [..., N, 3]``, the largest pose difference to ``b``
+    (angles wrapped)."""
+    d = a.detach().cpu().double() - torch.as_tensor(b).double()
+    d[..., 2] = torch.remainder(d[..., 2] + math.pi, 2 * math.pi) - math.pi
+    return d.abs().flatten(-2).amax(-1)
+
+
+def pose_err(a: torch.Tensor, b) -> float:
+    """The largest pose difference of two ``[..., N, 3]`` sets."""
+    return float(pose_errs(a, b).max())
+
+
+def solves_line(name, batch, sec, secs, c0, c1) -> dict:
+    rec = {"workload": name, "graphs": batch, "seconds": sec,
+           "seconds_runs": secs, "solves_per_s": batch / sec,
+           "chi2_start_mean": float(c0.mean()),
+           "chi2_end_mean": float(c1.mean()),
+           "chi2_end_max": float(c1.max())}
+    log(f"bench {name}: {batch} graphs, {sec:.4f} s (median of "
+        f"{', '.join(f'{t:.4f}' for t in secs)}), {batch / sec:.1f} "
+        f"solves/s; chi2 mean {rec['chi2_start_mean']:.6g} -> "
+        f"{rec['chi2_end_mean']:.6g} (max {rec['chi2_end_max']:.6g})")
+    return rec
+
+
+def bench_dense(out: list) -> None:
+    """(a) The dense band: ``gn.optimize`` (SPD inverse, ``chol`` off) of
+    ``build_batch(1024)``, and the dense reference point at hospital
+    scale."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.sim.graphs import (build_batch,
+                                                build_hospital_batch)
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    g = build_batch(1024, device="cuda")
+    step = lambda x: gn.optimize(x, 5)                   # noqa: E731
+    sec, a, secs = bench_timed(step, g)
+    assert torch.equal(a.poses, step(g).poses), "dense solve not repeatable"
+    c0, c1 = chi2(g), chi2(a)
+    assert bool(torch.all(c1 < c0)), (c0, c1)
+    worst = 0.0
+    for k in range(8):
+        one = gn.optimize(to_cpu(take(g, k)), 5)
+        d = a.poses[k].cpu().double() - one.poses.double()
+        d[:, 2] = torch.remainder(d[:, 2] + math.pi, 2 * math.pi) - math.pi
+        worst = max(worst, float(d.abs().max()))
+    assert worst <= 1e-4, worst
+    rec = solves_line("dense GN x5 (build_batch 1024: 64 vertices, 128 "
+                      "edges; SPD inverse)", 1024, sec, secs, c0, c1)
+    rec["cpu_batch1_max_pose_diff"] = worst
+    out.append(rec)
+    log(f"bench dense: 8 graphs within {worst:.3g} of batch-1 CPU solves; "
+        f"two calls equal to the bit")
+
+    g = build_hospital_batch(16, device="cuda")
+    sec, a, secs = bench_timed(step, g, reps=1)
+    out.append(solves_line("dense reference point GN x5 (16 x 1024-pose "
+                           "hospital; SPD inverse)", 16, sec, secs, chi2(g),
+                           chi2(a)))
+
+
+def bench_chain(out: list) -> None:
+    """(b) The chain band: ``optimize_chain`` of 512 hospital graphs at the
+    bench's operating point; then graph 0 with a CG schedule and with a
+    frozen preconditioner."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.sim.graphs import (build_hospital_batch,
+                                                hospital_truth)
+    from cg_mrslam_tpu_torch.solver import chain as CH
+
+    g = build_hospital_batch(512, device="cuda")
+    step = lambda x: CH.optimize_chain(x, 5, return_dropped=True,  # noqa
+                                       **CHAIN_KW)
+    sec, (a, dropped), secs = bench_timed(step, g)
+    assert torch.equal(a.poses, step(g)[0].poses), "chain solve not repeatable"
+    assert int(dropped.max()) == 0, dropped
+    c0, c1 = chi2(g), chi2(a)
+    assert bool(torch.isfinite(c1).all())
+    assert float(c1.mean()) < 0.05 * float(c0.mean()), (c0.mean(), c1.mean())
+    rec = solves_line("chain GN x5 (512 x 1024-pose hospital, cg 24, tol "
+                      "1e-4, loop cap 64)", 512, sec, secs, c0, c1)
+    truth = hospital_truth(g.poses.shape[-2])
+    dist = pose_errs(a.poses, truth)
+    q = {f"p{int(100 * x)}": float(torch.quantile(dist, x))
+         for x in (0.5, 0.9, 0.99)}
+    q["max"] = float(dist.max())
+    assert q["p50"] <= CHAIN_POSES, q
+    rec["optimum_max_pose_diff_quantiles"] = q
+    cpu, errs = [], []
+    for k in (0, 1):
+        one = CH.optimize_chain(to_cpu(take(g, k)), 5, **CHAIN_KW)
+        ck, want = float(c1[k]), float(chi2(one))
+        cpu.append(want)
+        errs.append((float(dist[k]), pose_err(one.poses, truth)))
+        assert chain_close(ck, want, float(c0[k])), (k, ck, want)
+    rec["cpu_batch1_chi2"] = cpu
+    rec["optimum_max_pose_diff_card_cpu"] = errs
+    # two graphs with 12 closures in float64 against the CPU
+    g64 = build_hospital_batch(2, closures=12, device="cuda")
+    g64 = dataclasses.replace(g64, **{f: getattr(g64, f).double()
+                                      for f in ("poses", "e_z", "e_info")})
+    card64 = CH.optimize_chain(g64, 5, **CHAIN_KW).poses
+    cpu64 = CH.optimize_chain(to_cpu(g64), 5, **CHAIN_KW).poses
+    e64 = pose_err(card64, cpu64)
+    assert e64 <= CHAIN_POSES_F64, e64
+    rec["float64_12_closures_max_pose_diff"] = e64
+    log(f"bench chain: dropped 0; graphs 0, 1 chi2 {float(c1[0]):.6g}, "
+        f"{float(c1[1]):.6g} on the card, {cpu[0]:.6g}, {cpu[1]:.6g} as "
+        f"batch-1 CPU solves, poses within {errs[0][0]:.3g}, "
+        f"{errs[1][0]:.3g} of the optimum ({errs[0][1]:.3g}, "
+        f"{errs[1][1]:.3g} on the CPU); the 512 graphs' distance from the "
+        f"optimum p50 {q['p50']:.3g}, p90 {q['p90']:.3g}, p99 "
+        f"{q['p99']:.3g}, max {q['max']:.3g}; two 12-closure graphs in "
+        f"float64 within {e64:.3g} of the CPU's; two calls equal to the bit")
+    g0 = take(g, slice(0, 1))
+    c00 = float(chi2(g0)[0])
+    for name, kw in (("cg_schedule (48, 24, 16, 12, 12)",
+                      dict(cg_schedule=(48, 24, 16, 12, 12), cg_iters=48,
+                           cg_tol=1e-4, loop_cap=64)),
+                     ("freeze_precond", dict(freeze_precond=True, **CHAIN_KW))):
+        CH.FREEZE_REDOS.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = CH.optimize_chain(g0, 5, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = float(chi2(o)[0])
+        redos = CH.FREEZE_REDOS["optimize_chain"]
+        e = pose_err(o.poses[0], truth)
+        assert math.isfinite(c) and c < 1e-3 * c00, (name, c, c00)
+        rec[name] = {"chi2": c, "seconds": dt, "redone_iterations": redos,
+                     "optimum_max_pose_diff": e}
+        log(f"bench chain graph 0, {name}: chi2 {c00:.6g} -> {c:.6g} in "
+            f"{dt:.3f} s, poses within {e:.3g} of the optimum; the guard "
+            f"redid {redos} iteration(s)")
+    out.append(rec)
+
+
+def bench_merged(out: list) -> None:
+    """(c) The PCG band on the merged two-robot fixture: 512 graphs, then
+    4096 as 8 chunks of 512 in a host loop."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+    from cg_mrslam_tpu_torch.solver.pcg import optimize_pcg
+
+    g, order, meta = build_merged_batch(512, device="cuda")
+    band = int(gn.auto_backend(take(g, 0), loop_cap=64, order=order))
+    assert band == 2, band
+    step = lambda x: optimize_pcg(x, 5, order=order,     # noqa: E731
+                                  cg_iters=MERGED_PCG_ITERS)
+    sec, a, secs = bench_timed(step, g)
+    c0, c1 = chi2(g), chi2(a)
+    assert bool(torch.isfinite(c1).all())
+    assert float(c1.mean()) < 1e-3 * float(c0.mean()), (c0.mean(), c1.mean())
+    rec = solves_line("merged PCG GN x5 (512 x merged 2-robot 1024, cg 8)",
+                      512, sec, secs, c0, c1)
+    cpu = []
+    for k in (0, 1):
+        one = optimize_pcg(to_cpu(take(g, k)), 5, order=order.cpu(),
+                           cg_iters=MERGED_PCG_ITERS)
+        want = float(chi2(one))
+        cpu.append(want)
+        assert abs(float(c1[k]) - want) <= 0.01 * want, (k, c1[k], want)
+    rec.update(meta, band=band, cpu_batch1_chi2=cpu,
+               chi2_element0=float(c1[0]), dense_cpu_oracle=MERGED_ORACLE)
+    log(f"bench merged: band {band} (PCG); element 0 chi2 "
+        f"{float(c1[0]):.4f} beside the dense CPU oracle {MERGED_ORACLE}; "
+        f"graphs 0, 1 on the CPU {cpu[0]:.4f}, {cpu[1]:.4f}")
+    out.append(rec)
+    del g, a
+
+    g, order, _ = build_merged_batch(4096, device="cuda")
+    n = g.poses.shape[0]
+    chunks = [take(g, slice(k, k + 512)) for k in range(0, n, 512)]
+
+    def run(chs):
+        return [step(c).poses for c in chs]
+
+    shifted = [dataclasses.replace(c, poses=c.poses + 1e-4) for c in chunks]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    poses = torch.cat(run(shifted))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    c0 = chi2(dataclasses.replace(g, poses=g.poses + 1e-4))
+    c1 = chi2(dataclasses.replace(g, poses=poses))
+    assert bool(torch.isfinite(c1).all())
+    assert float(c1.mean()) < 1e-3 * float(c0.mean()), (c0.mean(), c1.mean())
+    out.append(solves_line(f"merged PCG GN x5, {n} graphs ({len(chunks)} "
+                           f"chunks of 512, one timed call)", n, sec, [sec],
+                           c0, c1))
+
+
+def bench_pcg_64k(out: list) -> None:
+    """(d) Matrix-free PCG on one 65,536-pose graph."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.sim.graphs import build_hospital_batch
+    from cg_mrslam_tpu_torch.solver.pcg import optimize_pcg
+
+    g = take(build_hospital_batch(1, n=65536, closures=1024, seed=1,
+                                  device="cuda"), 0)
+    step = lambda x: optimize_pcg(x, 5, cg_iters=96)     # noqa: E731
+    sec, a, secs = bench_timed(step, g, reps=2)
+    c0, c1 = chi2(g), chi2(a)
+    assert math.isfinite(float(c1)) and float(c1) < 1e-3 * float(c0), (c0, c1)
+    out.append(solves_line("PCG GN x5 (one 65,536-pose graph, 1024 "
+                           "closures, cg 96)", 1, sec, secs, c0[None],
+                           c1[None]))
+
+
+def bench_gauge(out: list, matches) -> None:
+    """(e) The batched optimal gauge at phase 6's first star: every
+    candidate's uncertainty against a condense of that candidate alone
+    on the card, and the gauge against the CPU's."""
+    from cg_mrslam_tpu_torch import convert
+    from cg_mrslam_tpu_torch.core.graph import unpack_info
+    from cg_mrslam_tpu_torch.mr import condensed as CG
+    from cg_mrslam_tpu_torch.mr import mrslam as MR
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    t, st, peer, n_req = first_star(matches)
+    g, slots, valid, own, order, _ = MR.star_inputs(st, peer)
+    k = int(valid.sum())
+
+    def loop():
+        """One batch-1 condense of each valid candidate (the cost that the
+        batch replaces)."""
+        u1 = []
+        for j in range(valid.shape[0]):
+            if not bool(valid[j]):
+                u1.append(float("inf"))
+                continue
+            star = CG.condense(g, slots, valid, slots[j], own, order)
+            det = torch.linalg.det(unpack_info(star.info))
+            inv = 1.0 / torch.clamp(det, min=1e-30)
+            u1.append(float(torch.sum(torch.where(star.valid, inv,
+                                                  torch.zeros_like(inv)))))
+        return u1
+
+    batched = lambda: CG.gauge_uncertainty(g, slots, valid,  # noqa: E731
+                                           own, order)
+    batched()                     # warm-up of both, then one timed call each
+    loop()
+    gn.BAND_CALLS.clear()
+    u, sec = timed_call(batched, True)
+    bands = dict(gn.BAND_CALLS)
+    u1, loop_sec = timed_call(loop, True)
+    u = u.cpu().double().numpy()
+    u1 = np.asarray(u1)
+    live = np.isfinite(u1)
+    rel = np.abs(u[live] - u1[live]) / np.abs(u1[live])
+    assert np.all(np.isinf(u[~live])), u
+    assert np.all(rel <= 1e-4), (u, u1)
+    gauge = int(CG.select_gauge_optimal(g, slots, valid, own, order))
+    cpu = torch.device("cpu")
+    st_cpu = convert.mr_state_from_numpy(convert.to_numpy(st), cpu)
+    gc, sc, vc, oc, orc, _ = MR.star_inputs(st_cpu, peer)
+    gauge_cpu = int(CG.select_gauge_optimal(gc, sc, vc, oc, orc))
+    assert gauge == gauge_cpu, (gauge, gauge_cpu)
+    out.append({"workload": "optimal gauge (batched condense)", "tick": t,
+                "candidates": k, "requested": n_req, "seconds": sec,
+                "per_candidate_loop_seconds": loop_sec,
+                "max_rel_diff": float(rel.max()), "gauge": gauge,
+                "bands": {f"{e} {b}": v for (e, b), v in bands.items()}})
+    log(f"bench gauge: tick {t}, K = {k} candidates ({n_req} requested); "
+        f"batched {sec:.3f} s against {loop_sec:.3f} s for the per-candidate "
+        f"loop (host clock, synchronized; bands {bands}); uncertainties "
+        f"within {rel.max():.3g} relative; gauge {gauge} on the card and "
+        f"the CPU")
+
+
+def bench_sol(out: list) -> None:
+    """(f) ``utils/sol.report()`` on the card."""
+    from cg_mrslam_tpu_torch.utils import sol
+
+    rows = sol.report(reps=2)
+    for r in rows:
+        log("sol " + json.dumps(r))
+        for key, v in r.items():
+            if key.startswith("of_") or key == "sol_fraction":
+                assert 0 < v <= 1.05, (r["kernel"], key, v)
+    out.append({"workload": "sol", "rows": rows})
+
+
+def bench_latency(out: list, ticks: int = LATENCY_TICKS):
+    """(g) ``srslam`` at capacity 1024 (``bench.py:330-351``) on the card to
+    the end of the route or ``ticks``. Returns K1's launches by shape."""
+    from cg_mrslam_tpu_torch.config import Config, MatcherConfig, SlamConfig
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.sim import world as W
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    cfg = Config(slam=SlamConfig(),
+                 close_matcher=MatcherConfig(extent=30.0, resolution=0.025,
+                                             kernel_radius=0.2),
+                 lc_matcher=MatcherConfig(extent=70.0, resolution=0.1,
+                                          kernel_radius=0.5),
+                 max_vertices=1024, max_edges=4096)
+    world = W.hospital_world(40.0, 20.0, seed=0)
+    fov = 2 * np.pi * 0.75
+    traj = W.simulate_robot(world, W.corridor_waypoints(40.0, 20.0, 0, 4),
+                            seed=1, beams=360, fov=fov, max_range=10.0,
+                            odom_noise=(0.01, 0.004), device="cuda")
+    n_ticks = min(ticks, len(traj.gt))
+    K.SCORE_VOLUME.launches = 0
+    K.SCORE_VOLUME.launches_by_shape.clear()
+    gn.BAND_CALLS.clear()
+    t0 = time.perf_counter()
+    slam, kf_t, lat = run_slice(cfg, traj, fov, "cuda", max_ticks=n_ticks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.SCORE_VOLUME.launches
+    by_shape = dict(K.SCORE_VOLUME.launches_by_shape)
+    bands = dict(gn.BAND_CALLS)
+    infos = slam.infos
+    n_kf = len(infos)
+    closures = sum(i.closures_added for i in infos)
+    gt = traj.gt[kf_t]
+    a_slam, a_odom = ate(slam.poses, gt), ate(traj.odom[kf_t], gt)
+    backends = collections.Counter(i.solver_backend for i in infos)
+    first_1024 = int(kf_t[sum(len(v) for b, v in lat.items() if b < 1024)
+                          + 1]) if 1024 in lat else None
+    log(f"bench latency: srslam at capacity 1024, {n_ticks} of "
+        f"{len(traj.gt)} ticks (the first keyframe in bucket 1024 at tick "
+        f"{first_1024}), {n_kf} keyframes in {wall:.2f} s; K1 "
+        f"launches {launches}; closures {closures}; final chi2 "
+        f"{infos[-1].chi2:.4f}; ATE {a_slam:.4f} m vs odometry ATE "
+        f"{a_odom:.4f} m; backends per keyframe {dict(backends)}; solver "
+        f"bands {bands}")
+    per_bucket = {}
+    for b in sorted(lat):
+        v = np.asarray(lat[b]) * 1e3
+        per_bucket[str(b)] = {"n": len(v),
+                              "p50_ms": float(np.percentile(v, 50)),
+                              "p99_ms": float(np.percentile(v, 99)),
+                              "max_ms": float(v.max())}
+        log(f"bench latency: bucket {b}: {len(v)} keyframes, p50 "
+            f"{np.percentile(v, 50):.2f} ms, p99 {np.percentile(v, 99):.2f} "
+            f"ms, max {v.max():.2f} ms (host clock, synchronized)")
+    assert launches == 3 * n_kf, (launches, n_kf)
+    assert all(np.isfinite(i.chi2) for i in infos)
+    assert closures >= 1, closures
+    assert a_slam < a_odom, (a_slam, a_odom)
+    assert 1024 in lat and len(lat[1024]) >= 60, sorted(lat)
+    banded = sum(v for (e, b), v in bands.items()
+                 if e == "optimize_auto" and b in ("chain", "pcg"))
+    assert banded >= len(lat[1024]) and backends[0] < n_kf, (bands, backends)
+    out.append({"workload": "srslam keyframe latency at capacity 1024",
+                "ticks": n_ticks, "route_ticks": len(traj.gt),
+                "keyframes": n_kf, "seconds": wall, "closures": closures,
+                "ate_m": a_slam, "odometry_ate_m": a_odom,
+                "final_chi2": float(infos[-1].chi2),
+                "backends": {str(k): v for k, v in backends.items()},
+                "bands": {f"{e} {b}": v for (e, b), v in bands.items()},
+                "per_bucket": per_bucket})
+    return by_shape
+
+
+def phase_bench(matches) -> dict:
+    """Phase 13 (see the module docstring). Writes every workload's record
+    to ``chiprun_out/phase13/bench.json``; returns K1's launches by shape
+    in (g)."""
+    PHASE13_DIR.mkdir(parents=True, exist_ok=True)
+    out, by_shape = [], {}
+    for name, fn in (("dense", lambda: bench_dense(out)),
+                     ("chain", lambda: bench_chain(out)),
+                     ("merged", lambda: bench_merged(out)),
+                     ("pcg 64k", lambda: bench_pcg_64k(out)),
+                     ("gauge", lambda: bench_gauge(out, matches)),
+                     ("sol", lambda: bench_sol(out)),
+                     ("latency", lambda: by_shape.update(bench_latency(out)))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        log(f"bench {name}: {time.perf_counter() - t0:.1f} s")
+    (PHASE13_DIR / "bench.json").write_text(json.dumps(out, indent=1))
+    return by_shape
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2217,6 +2746,14 @@ def main() -> int:
     phase_parallel(slam, cfg, traj, fov, slam.infos, kf_t, sim, mlog, times,
                    first, before, records)
     log(f"parallel: phase 12 in {time.perf_counter() - t0:.1f} s")
+
+    # --- 13. the JAX bench's workloads on the card ---
+    t0 = time.perf_counter()
+    k1_1024 = phase_bench(matches)
+    for rec in records:
+        if not rec.get("pair") and "launches_main_path" not in rec:
+            rec["launches_srslam_1024"] = k1_1024.get(tuple(rec["shape"]), 0)
+    log(f"bench: phase 13 in {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)
     print(json.dumps({"kernels": records + probe_records}), flush=True)

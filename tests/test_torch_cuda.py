@@ -11,8 +11,11 @@ keyframe, K2's pair per global search, no probe) whose messages decode onto
 the card as on the CPU; K2's single-grid entry at the lattices of
 ``global_match`` and ``loop_closure_match_hierarchical``, ``global_match``
 on the card against the CPU, the visibility gate adding no host sync, and
-cells on the card equal to the CPU's for points on cell edges. Every test
-carries the ``cuda`` marker and skips where there is no NVIDIA GPU.
+cells on the card equal to the CPU's for points on cell edges; the solves
+over a batch of graphs (dense, chain, PCG bands) repeated bit for bit,
+against the CPU's, and with as many host reads for 64 graphs as for 2.
+Every test carries the ``cuda`` marker and skips where there is no NVIDIA
+GPU.
 
 This file imports neither JAX nor ``cg_mrslam_tpu``, so it also runs on a
 machine without them (``tests/conftest.py`` imports JAX, hence
@@ -21,6 +24,7 @@ machine without them (``tests/conftest.py`` imports JAX, hence
     PYTHONPATH=. python -m pytest --noconftest -o addopts= -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 import math
 from pathlib import Path
 
@@ -1081,3 +1085,161 @@ def test_fleet_keyframe_round_on_the_card_matches_cpu(dev, monkeypatch):
                                atol=1e-4 + 1e-6 * np.abs(out["cpu"][1]).max())
     lvl = out["cuda"][0]["slam.graph.e_level"]
     assert (lvl > 0).any()
+
+
+# ------------------------------------------------ solves over a batch
+
+
+def _batch_of(band, device):
+    """A batch of the band's bench graphs on ``device``."""
+    from cg_mrslam_tpu_torch.sim import graphs as GR
+
+    if band.startswith("dense"):
+        return GR.build_batch(64, device=device), None
+    if band == "chain":
+        return GR.build_hospital_batch(8, device=device), None
+    g, order, _ = GR.build_merged_batch(8, device=device)
+    return g, order
+
+
+def _solve(band, g, order):
+    from cg_mrslam_tpu_torch.solver import chain as CH
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+    from cg_mrslam_tpu_torch.solver.pcg import optimize_pcg
+
+    if band.startswith("dense"):
+        return gn.optimize(g, 5, chol=band == "dense_chol").poses
+    if band == "chain":
+        return CH.optimize_chain(g, 5, loop_cap=64, cg_iters=24,
+                                 cg_tol=1e-4).poses
+    return optimize_pcg(g, 5, order=order, cg_iters=8).poses
+
+
+BANDS = ["dense", "dense_chol", "chain", "pcg"]
+
+
+@pytest.mark.parametrize("band", BANDS)
+def test_batched_solves_repeat_bit_for_bit(dev, band):
+    """Five batched solves of each band on the card give the same bits."""
+    g, order = _batch_of(band, dev)
+    first = _solve(band, g, order)
+    assert bool(torch.isfinite(first).all())
+    for _ in range(4):
+        assert torch.equal(_solve(band, g, order), first), band
+
+
+@pytest.mark.parametrize("band", BANDS)
+def test_batched_solves_on_the_card_match_cpu(dev, band):
+    """The card's batched solve against the CPU's, at the CPU tests' bars
+    (``tests/test_torch_batched.py``): dense poses within 1e-4; chain: the
+    median over the batch of each graph's largest distance from the exact
+    optimum within 0.02 m and rad, then chi2 within 1%, or both below 1e-4
+    of the start (converged: the float32 noise floor, where one graph's
+    chi2 lands anywhere from 1e-6 to 1e-2 with the rounding); PCG chi2
+    within 1%. Graph by graph, a float32 chain solve ends anywhere from
+    0.002 to 0.05 from the optimum as the rounding goes, and about one in
+    a hundred far off (over 128 graphs on the CPU: median 0.007, p90 0.017,
+    p99 0.43), so only the median is held; medians of 8 graphs read 0.003
+    to 0.014 on the CPU. The tight check of the chain band on the card is
+    :func:`test_batched_chain_float64_on_the_card_matches_cpu`."""
+    from cg_mrslam_tpu_torch.core.linearize import chi2
+    from cg_mrslam_tpu_torch.sim.graphs import hospital_truth
+
+    g, order = _batch_of(band, dev)
+    gc, oc = _batch_of(band, "cpu")
+    got, want = _solve(band, g, order).cpu(), _solve(band, gc, oc)
+    if band.startswith("dense"):
+        assert float(_pose_err(got, want).max()) <= 1e-4
+        return
+    if band == "chain":
+        truth = torch.as_tensor(hospital_truth(got.shape[-2]))
+        e_card, e_cpu = _pose_err(got, truth), _pose_err(want, truth)
+        assert float(e_card.median()) <= 0.02, (e_card, e_cpu)
+    c0 = chi2(gc).double()
+    c1 = chi2(dataclasses.replace(gc, poses=got)).double()
+    c2 = chi2(dataclasses.replace(gc, poses=want)).double()
+    close = (c1 - c2).abs() <= 0.01 * c2
+    if band == "chain":
+        close |= torch.maximum(c1, c2) <= 1e-4 * c0
+    assert bool(torch.all(close)), (c1, c2, c0)
+
+
+def _pose_err(a, b):
+    """Per graph, the largest pose difference (angles wrapped)."""
+    d = (a.double() - b.double())
+    d[..., 2] = torch.remainder(d[..., 2] + math.pi, 2 * math.pi) - math.pi
+    return d.abs().flatten(-2).amax(-1)
+
+
+def test_batched_chain_float64_on_the_card_matches_cpu(dev):
+    """Five GN iterations of the chain band at the bench's operating point,
+    in float64, on 8 bench hospital graphs with 12 loop closures: the
+    card's poses within 1e-6 of the CPU's (``tests/test_torch_chain_f64.py``'s
+    bar against the reference; with 12 closures the capacitance inverse
+    converges on every graph, so rounding is all that differs)."""
+    from cg_mrslam_tpu_torch.sim import graphs as GR
+    from cg_mrslam_tpu_torch.solver import chain as CH
+
+    out = {}
+    for d in (dev, "cpu"):
+        g = GR.build_hospital_batch(8, closures=12, device=d)
+        g = dataclasses.replace(g, **{f: getattr(g, f).double()
+                                      for f in ("poses", "e_z", "e_info")})
+        out[d] = CH.optimize_chain(g, 5, loop_cap=64, cg_iters=24,
+                                   cg_tol=1e-4).poses.cpu()
+    err = _pose_err(out[dev], out["cpu"])
+    assert bool(torch.all(err <= 1e-6)), err
+
+
+def test_batched_chain_host_reads_with_closures(dev, monkeypatch):
+    """Host synchronizations of a batched chain solve of 2 and of 64 bench
+    hospital graphs (48 loop closures each, distinct noise) are equal, with
+    every loop at a fixed count: CG to its whole budget (``cg_tol`` 0) and
+    the capacitance inverse's Newton–Schulz polish at exactly 8 steps. So
+    the Woodbury part of the batched path carries the check too."""
+    import functools
+
+    from cg_mrslam_tpu_torch.sim import graphs as GR
+    from cg_mrslam_tpu_torch.solver import chain as CH
+    from cg_mrslam_tpu_torch.solver import spd
+
+    monkeypatch.setattr(CH, "spd_inverse", functools.partial(
+        spd.spd_inverse, refine=8, max_refine=8))
+    count_syncs = _find_syncs()
+    counts = {}
+    for b in (2, 64):
+        g = GR.build_hospital_batch(b, device=dev)
+        CH.optimize_chain(g, 5, loop_cap=64, cg_iters=24, cg_tol=0.0)
+        _, where = count_syncs(lambda g=g: CH.optimize_chain(
+            g, 5, loop_cap=64, cg_iters=24, cg_tol=0.0))
+        counts[b] = sum(where.values())
+    assert counts[2] == counts[64] > 0, counts
+
+
+def test_batched_chain_host_reads_do_not_grow_with_batch(dev):
+    """A batched chain solve of 2 and of 64 copies of one graph makes the
+    same number of host synchronizations (``count_syncs`` under
+    ``set_sync_debug_mode("warn")``): the segment table's width once, the
+    masked loops' looks every 8 iterations, whatever the batch size. The
+    loops run to fixed counts here, so that rounding (batched matmuls of
+    another batch size round otherwise) cannot move an exit: CG to its
+    whole budget (``cg_tol`` 0), and a pure odometry chain, whose
+    capacitance matrix is the identity (its inverse's polish stops after
+    its first two steps)."""
+    from cg_mrslam_tpu_torch.sim import graphs as GR
+    from cg_mrslam_tpu_torch.solver import chain as CH
+
+    one = GR.build_hospital_batch(1, n=512, closures=0, device=dev)
+    count_syncs = _find_syncs()
+    counts = {}
+    for b in (2, 64):
+        g = dataclasses.replace(one, **{
+            f: getattr(one, f).expand((b,) + getattr(one, f).shape[1:])
+            .contiguous() for f in ("poses", "vmask", "fixed", "e_ij", "e_z",
+                                    "e_info", "emask", "e_level", "e_owner",
+                                    "n_vertices", "n_edges")})
+        CH.optimize_chain(g, 5, loop_cap=64, cg_iters=24, cg_tol=0.0)
+        _, where = count_syncs(lambda g=g: CH.optimize_chain(
+            g, 5, loop_cap=64, cg_iters=24, cg_tol=0.0))
+        counts[b] = sum(where.values())
+    assert counts[2] == counts[64] > 0, counts

@@ -164,6 +164,23 @@ def test_load_matches_the_reference(tmp_path, native, kind):
 
 
 @pytest.mark.parametrize("native", [True, False])
+def test_load_dtype_matches_the_reference(tmp_path, native):
+    """``load(dtype=...)``: the graph's float fields in float64 hold the
+    file's values as the reference's float64 load does (equal: both parse
+    the same text to float64)."""
+    import jax.numpy as jnp
+
+    path = str(tmp_path / "g.g2o")
+    _write_sample(path)
+    want = JIO.load(path, native=False, dtype=jnp.float64)
+    got = TIO.load(path, native=native, dtype=torch.float64, device="cpu")
+    for name in ("poses", "e_z", "e_info"):
+        a, b = npy(getattr(got.graph, name)), npy(getattr(want.graph, name))
+        assert a.dtype == np.float64 and b.dtype == np.float64, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("native", [True, False])
 def test_malformed_file_raises(tmp_path, native):
     path = tmp_path / "bad.g2o"
     path.write_text("VERTEX_SE2 0 0 0 0\nVERTEX_SE2 1 1.0 zero 0\n"

@@ -153,3 +153,53 @@ def test_build_star_optimal_gauge():
     _star_close(got, want)
     assert int(got.gauge) in npy(got.boundary)[npy(got.valid) | (
         npy(got.boundary) == int(got.gauge))]
+
+
+@pytest.mark.parametrize("valid", [[True] * 5, [True, False, True, True,
+                                                 False]])
+def test_gauge_uncertainty_batched(valid):
+    """``select_gauge_optimal``'s one batched condense of the valid
+    candidates: every candidate's Σ det(Ω)⁻¹ against the reference's
+    condense of that candidate (rtol 1e-3: a float32 batched condense,
+    summed in other orders than the reference's single one), +inf on an
+    invalid slot, and the reference's gauge."""
+    jg = _random_graph(seed=3)
+    tg = port(jg, TG.PoseGraph)
+    boundary = np.asarray([1, 6, 12, 19, 23], np.int32)
+    valid = np.asarray(valid)
+    u = npy(TCG.gauge_uncertainty(tg, tf(boundary), torch.as_tensor(valid),
+                                  tg.emask))
+    assert np.all(np.isinf(u[~valid]))
+    for k in np.flatnonzero(valid):
+        uj = _uncertainty(JCG, JG.unpack_info, jg, jf(boundary),
+                          jnp.asarray(valid), jnp.asarray(boundary[k]))
+        np.testing.assert_allclose(u[k], uj, rtol=1e-3)
+    want = JCG.select_gauge_optimal(jg, jf(boundary), jnp.asarray(valid),
+                                    jg.emask)
+    assert int(boundary[np.argmin(u)]) == int(want)
+
+
+def test_gauge_uncertainty_batched_banded():
+    """The batched condense above the dense band: the merged two-robot
+    fixture (capacity 1024, robot 0's own edges, the PCG band under its
+    chain order) with four candidate gauges, each candidate's uncertainty
+    against the port's own batch-1 condense of it (rtol 1e-3: the same
+    float32 solves, batched)."""
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+    from cg_mrslam_tpu_torch.solver import gauss_newton as tgn
+
+    gb, order, _ = build_merged_batch(1, device="cpu")
+    g = TG.PoseGraph(**{f.name: getattr(gb, f.name)[0]
+                        for f in dc.fields(gb)})
+    own = TG.own_edge_mask(g, 0)
+    boundary = torch.tensor([40, 120, 200, 330], dtype=torch.int32)
+    valid = torch.ones(4, dtype=torch.bool)
+    tgn.BAND_CALLS.clear()
+    u = npy(TCG.gauge_uncertainty(g, boundary, valid, own, order))
+    assert set(b for _, b in tgn.BAND_CALLS) <= {"chain", "pcg"}
+    for k in range(4):
+        star = TCG.condense(g, boundary, valid, boundary[k], own, order)
+        omega = npy(TG.unpack_info(star.info)).astype(np.float64)
+        uk = np.sum(np.where(npy(star.valid), 1.0 / np.maximum(
+            np.linalg.det(omega), 1e-30), 0.0))
+        np.testing.assert_allclose(u[k], uk, rtol=1e-3)

@@ -1,6 +1,7 @@
 """Count the torch operations that one condense issues in the port.
 
     python tools/count_torch_ops.py --ticks 120
+    python tools/count_torch_ops.py --chain 1024
 
 Runs the two-robot ``cg_mrslam`` default deployment (``chip_smoke.py``'s
 ``deployment_config``) through ``MultiRobotSim`` on the CPU up to ``--ticks``,
@@ -9,6 +10,13 @@ then counts, with a dispatch-mode counter, the operations of one
 On the card each operation is at least one host dispatch and most are one
 kernel launch, so the count says how host-bound a condense is. The CPU's
 times are printed for orientation only; they are not the card's.
+
+With ``--chain N``: the operations of the chain band's two solver calls in
+a keyframe above the dense band, on one ``N``-pose hospital graph
+(``sim/graphs.build_hospital_batch``): ``optimize_chain`` at
+``optimize_auto``'s budget (5 GN iterations, 48 CG, tolerance 1e-6) and
+``marginal_covariance_chain`` of 8 vertices at
+``marginal_covariance_auto``'s (64 CG, 1e-5).
 """
 
 from __future__ import annotations
@@ -62,12 +70,35 @@ def counted(fn, ops, calls, name):
     return call
 
 
+def chain_ops(n: int) -> int:
+    from cg_mrslam_tpu_torch.sim.graphs import build_hospital_batch
+
+    gb = build_hospital_batch(1, n=n, device="cpu")
+    g = gn._take(gb, 0)
+    for name, fn in (
+            ("optimize_chain (5 GN, cg 48, tol 1e-6)",
+             lambda: CH.optimize_chain(g, 5, loop_cap=64, cg_iters=48,
+                                       cg_tol=1e-6)),
+            ("marginal_covariance_chain (8 vertices, cg 64, tol 1e-5)",
+             lambda: CH.marginal_covariance_chain(
+                 g, torch.arange(0, n, n // 8), loop_cap=64, cg_iters=64,
+                 cg_tol=1e-5))):
+        c = Count()
+        with c:
+            fn()
+        print(f"{name} at {n} poses: {c.n} operations")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=120)
     ap.add_argument("--threads", type=int, default=8)
+    ap.add_argument("--chain", type=int, default=None, metavar="N")
     a = ap.parse_args()
     torch.set_num_threads(a.threads)
+    if a.chain:
+        return chain_ops(a.chain)
     sim = MultiRobotSim(deployment_config(2),
                         W.hospital_world(40.0, 20.0, seed=0), beams=360,
                         max_range=10.0, seed=0, n_loops=2,
