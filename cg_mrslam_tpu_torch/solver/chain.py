@@ -56,6 +56,7 @@ from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, ends_sum
 from cg_mrslam_tpu_torch.solver.spd import (_spd_inverse_rec, masked_loop,
                                             per, spd_inverse)
 from cg_mrslam_tpu_torch.utils import se2
+from cg_mrslam_tpu_torch.utils.metrics import count, span
 
 # Poses per cyclic-reduction super-block (the reference's constant: it
 # fixes the factorization's block structure, so the results).
@@ -574,7 +575,8 @@ def _pcg_best(hmv, prec, rhs: torch.Tensor, bn: torch.Tensor, tol2: float,
         return tuple(torch.where(go if a.dim() == go.dim() else col(go),
                                  a, b) for a, b in zip(new, old)), go
 
-    s = masked_loop(body, (k0, x, r, z, dot(r, z), rr2, x, rr2), budget)
+    s = masked_loop(body, (k0, x, r, z, dot(r, z), rr2, x, rr2), budget,
+                    "chain.cg")
     _, x_fin, _, _, _, rr2_fin, x_best, rr2_best = s
     return _select_cg_iterate(x_fin, rr2_fin, x_best, rr2_best)
 
@@ -595,16 +597,19 @@ def _chain_delta_impl(g: PoseGraph, edge_mask, loop_cap: int,
                       pst: _PrecondState | None = None):
     """One GN update via preconditioned CG on the CURRENT true H. ``pst``
     reuses a frozen preconditioner from an earlier linearization."""
-    td, b, loops, dropped = _assemble(g, edge_mask, loop_cap, damp=damp,
-                                      table=table)
+    with span("gn.linearize"):
+        td, b, loops, dropped = _assemble(g, edge_mask, loop_cap, damp=damp,
+                                          table=table)
     if pst is None:
-        pst = _precond_setup(td, loops)
-    bb = -b
-    bn = torch.clamp(torch.sum(bb * bb, dim=(-2, -1)), min=1e-30)
-    dx = _pcg_best(lambda x: _h_matvec(td, loops, x),
-                   lambda r: _precond(pst, r), bb, bn,
-                   cg_tol * cg_tol, cg_iters)
-    dx = dx * td.free[..., None].to(dx.dtype)
+        with span("gn.precond"):
+            pst = _precond_setup(td, loops)
+    with span("gn.solve"):
+        bb = -b
+        bn = torch.clamp(torch.sum(bb * bb, dim=(-2, -1)), min=1e-30)
+        dx = _pcg_best(lambda x: _h_matvec(td, loops, x),
+                       lambda r: _precond(pst, r), bb, bn,
+                       cg_tol * cg_tol, cg_iters)
+        dx = dx * td.free[..., None].to(dx.dtype)
     return dx, dropped
 
 
@@ -665,19 +670,23 @@ def optimize_chain(g: PoseGraph, iterations: int = 5,
     table = _edge_table(g, edge_mask)
     pst = None
     if freeze_precond:
-        td0, _, loops0, _ = _assemble(g, edge_mask, loop_cap, damp=damp,
-                                      table=table)
-        pst = _precond_setup(td0, loops0)
+        with span("gn.linearize"):
+            td0, _, loops0, _ = _assemble(g, edge_mask, loop_cap, damp=damp,
+                                          table=table)
+        with span("gn.precond"):
+            pst = _precond_setup(td0, loops0)
     for budget in sched:
         dx, dropped = _chain_delta_impl(g, edge_mask, loop_cap,
                                         cg_tol=cg_tol, cg_iters=budget,
                                         damp=damp, table=table, pst=pst)
-        poses = se2.oplus(g.poses, dx)
+        with span("gn.update"):
+            poses = se2.oplus(g.poses, dx)
         if pst is not None:
             bad = _freeze_diverged(chi2(g, edge_mask),
                                    chi2(dataclasses.replace(g, poses=poses),
                                         edge_mask))
             n_bad = int(torch.sum(bad.to(torch.int32)))
+            count("host_read.chain.freeze_guard")
             if n_bad:
                 FREEZE_REDOS["optimize_chain"] += n_bad
                 dx2, dr2 = _chain_delta_impl(g, edge_mask, loop_cap,
@@ -688,6 +697,7 @@ def optimize_chain(g: PoseGraph, iterations: int = 5,
                 dropped = torch.where(bad, dr2, dropped)
         g = dataclasses.replace(g, poses=poses)
         dmax = torch.maximum(dmax, dropped)
+        count("gn.iters.chain")
     return (g, dmax) if return_dropped else g
 
 

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from cg_mrslam_tpu_torch.utils.metrics import count
+
 
 def segment_table(targets: torch.Tensor, active: torch.Tensor,
                   n: int) -> torch.Tensor:
@@ -40,6 +42,7 @@ def segment_table(targets: torch.Tensor, active: torch.Tensor,
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(k, device=dev) - starts[ts]
     width = max(int(counts[:n].max()), 1)
+    count("host_read.segment_table")
     slot = torch.full((n + 1, width), k, dtype=torch.long, device=dev)
     # inactive contributions go to the spare row n (cut off below), all to
     # its first column

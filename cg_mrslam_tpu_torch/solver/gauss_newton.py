@@ -57,6 +57,7 @@ from cg_mrslam_tpu_torch.solver.pcg import (marginal_covariance_pcg,
                                             optimize_pcg)
 from cg_mrslam_tpu_torch.solver.spd import pcg_refine, spd_inverse
 from cg_mrslam_tpu_torch.utils import se2
+from cg_mrslam_tpu_torch.utils.metrics import count, span
 
 # Capacity bands, copied unchanged from the reference (they decide which
 # solver each keyframe bucket runs).
@@ -205,10 +206,15 @@ def gn_step(g: PoseGraph, edge_mask: torch.Tensor | None = None,
             chol: bool = False) -> PoseGraph:
     """One linearize → solve → oplus update (g2o GN iteration); ``damping``
     is the Levenberg–Marquardt λ."""
-    dx = solve_normal_equations(build_normal_equations(g, edge_mask),
-                                damping, chol=chol)
-    return dataclasses.replace(g, poses=se2.oplus(g.poses,
-                                                  dx.reshape(g.poses.shape)))
+    with span("gn.linearize"):
+        eq = build_normal_equations(g, edge_mask)
+    with span("gn.solve"):
+        dx = solve_normal_equations(eq, damping, chol=chol)
+    with span("gn.update"):
+        g = dataclasses.replace(g, poses=se2.oplus(g.poses,
+                                                   dx.reshape(g.poses.shape)))
+    count("gn.iters.dense")
+    return g
 
 
 def optimize(g: PoseGraph, iterations: int = 5,
@@ -227,14 +233,18 @@ def optimize(g: PoseGraph, iterations: int = 5,
     minv = None
     bd = g.poses.dim() - 2
     for _ in range(iterations):
-        eq = build_normal_equations(g, edge_mask)
-        H, b = _gauge_fix(eq.H, eq.b, eq.free3)
-        if minv is None:
-            minv = spd_inverse(H, batch_dims=bd)
-        dx = -pcg_refine(H, b[..., None], minv, tol=1e-7,
-                         batch_dims=bd)[..., 0] * eq.free3
-        g = dataclasses.replace(g, poses=se2.oplus(
-            g.poses, dx.reshape(g.poses.shape)))
+        with span("gn.linearize"):
+            eq = build_normal_equations(g, edge_mask)
+        with span("gn.solve"):
+            H, b = _gauge_fix(eq.H, eq.b, eq.free3)
+            if minv is None:
+                minv = spd_inverse(H, batch_dims=bd)
+            dx = -pcg_refine(H, b[..., None], minv, tol=1e-7,
+                             batch_dims=bd)[..., 0] * eq.free3
+        with span("gn.update"):
+            g = dataclasses.replace(g, poses=se2.oplus(
+                g.poses, dx.reshape(g.poses.shape)))
+        count("gn.iters.dense")
     return g
 
 
@@ -245,6 +255,7 @@ def _dense_max(chol: bool) -> int:
 def _chainable(g, edge_mask, loop_cap, order) -> bool:
     """The chain band's runtime check, read on the host: the reference's
     ``lax.cond`` predicate (one device-to-host read per call)."""
+    count("host_read.chainable")
     return bool(CH.chainable(g, edge_mask, loop_cap=loop_cap, order=order))
 
 
@@ -260,15 +271,21 @@ def _split_bands(g, edge_mask, loop_cap, order, entry, chain_fn, pcg_fn,
     and PCG where it is not: one host read of the per-graph predicate for
     the whole batch, each band run on its sub-batch, the results put back
     in batch order in a tensor like ``out_like`` ``[B, ...]``."""
-    ok = CH.chainable(g, edge_mask, loop_cap=loop_cap, order=order).cpu()
-    out = torch.empty_like(out_like)
-    for band, fn, sel in (("chain", chain_fn, ok), ("pcg", pcg_fn, ~ok)):
-        idx = torch.nonzero(sel).reshape(-1).to(out.device)
-        if idx.numel():
-            BAND_CALLS[entry, band] += idx.numel()
-            em = edge_mask if edge_mask is None else edge_mask[idx]
-            out[idx] = fn(_take(g, idx), em, idx)
-    return out
+    with span("solver.split"):
+        ok = CH.chainable(g, edge_mask, loop_cap=loop_cap,
+                          order=order).cpu()
+        count("host_read.split")
+        out = torch.empty_like(out_like)
+        for band, fn, sel in (("chain", chain_fn, ok), ("pcg", pcg_fn, ~ok)):
+            idx = torch.nonzero(sel).reshape(-1).to(out.device)
+            if idx.numel():
+                BAND_CALLS[entry, band] += idx.numel()
+                em = edge_mask if edge_mask is None else edge_mask[idx]
+                sub = _take(g, idx)
+                with span("band." + band):
+                    res = fn(sub, em, idx)
+                out[idx] = res
+        return out
 
 
 def auto_backend(g: PoseGraph, edge_mask: torch.Tensor | None = None,
@@ -302,33 +319,39 @@ def optimize_auto(g: PoseGraph, iterations: int = 5,
     permutation of merged multi-robot graphs (one for every graph of a
     batch)."""
     n = g.poses.shape[-2]
-    if g.poses.dim() == 3 and _dense_max(chol) < n <= PCG_MIN:
-        poses = _split_bands(
-            g, edge_mask, loop_cap, order, "optimize_auto",
-            lambda gs, em, _: CH.optimize_chain(
-                gs, iterations=iterations, edge_mask=em, loop_cap=loop_cap,
-                order=order, cg_iters=chain_cg_iters,
-                cg_tol=chain_cg_tol).poses,
-            lambda gs, em, _: optimize_pcg(
-                gs, iterations=iterations, edge_mask=em, cg_iters=pcg_iters,
-                order=order).poses, g.poses)
-        return dataclasses.replace(g, poses=poses)
-    if n > PCG_MIN:
-        BAND_CALLS["optimize_auto", "pcg"] += 1
-        return optimize_pcg(g, iterations=iterations, edge_mask=edge_mask,
-                            cg_iters=pcg_iters, order=order)
-    if n <= _dense_max(chol):
-        BAND_CALLS["optimize_auto", "dense"] += 1
-        return optimize(g, iterations, edge_mask, chol=chol)
-    if _chainable(g, edge_mask, loop_cap, order):
-        BAND_CALLS["optimize_auto", "chain"] += 1
-        return CH.optimize_chain(g, iterations=iterations,
-                                 edge_mask=edge_mask, loop_cap=loop_cap,
-                                 order=order, cg_iters=chain_cg_iters,
-                                 cg_tol=chain_cg_tol)
-    BAND_CALLS["optimize_auto", "pcg"] += 1
-    return optimize_pcg(g, iterations=iterations, edge_mask=edge_mask,
-                        cg_iters=pcg_iters, order=order)
+    with span("solver.optimize_auto"):
+        if g.poses.dim() == 3 and _dense_max(chol) < n <= PCG_MIN:
+            poses = _split_bands(
+                g, edge_mask, loop_cap, order, "optimize_auto",
+                lambda gs, em, _: CH.optimize_chain(
+                    gs, iterations=iterations, edge_mask=em,
+                    loop_cap=loop_cap, order=order,
+                    cg_iters=chain_cg_iters, cg_tol=chain_cg_tol).poses,
+                lambda gs, em, _: optimize_pcg(
+                    gs, iterations=iterations, edge_mask=em,
+                    cg_iters=pcg_iters, order=order).poses, g.poses)
+            return dataclasses.replace(g, poses=poses)
+        if n > PCG_MIN:
+            band = "pcg"
+        elif n <= _dense_max(chol):
+            band = "dense"
+        elif _chainable(g, edge_mask, loop_cap, order):
+            band = "chain"
+        else:
+            band = "pcg"
+        BAND_CALLS["optimize_auto", band] += 1
+        with span("band." + band):
+            if band == "dense":
+                return optimize(g, iterations, edge_mask, chol=chol)
+            if band == "chain":
+                return CH.optimize_chain(g, iterations=iterations,
+                                         edge_mask=edge_mask,
+                                         loop_cap=loop_cap, order=order,
+                                         cg_iters=chain_cg_iters,
+                                         cg_tol=chain_cg_tol)
+            return optimize_pcg(g, iterations=iterations,
+                                edge_mask=edge_mask, cg_iters=pcg_iters,
+                                order=order)
 
 
 def marginal_covariance_auto(g: PoseGraph, query: torch.Tensor,

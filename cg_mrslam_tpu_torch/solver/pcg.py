@@ -36,6 +36,7 @@ from cg_mrslam_tpu_torch.solver.chain import (GROUP, _cr_apply, _cr_factor,
 from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, ends_sum
 from cg_mrslam_tpu_torch.solver.spd import masked_loop, per
 from cg_mrslam_tpu_torch.utils import se2
+from cg_mrslam_tpu_torch.utils.metrics import count, span
 
 
 class EdgeFactors(NamedTuple):
@@ -190,18 +191,20 @@ def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
     falls below ``tol`` is not taken: the state stays frozen before it
     (per graph of a batch). ``table``: the solve's :func:`_edge_table`
     (built here if not given)."""
-    f = _factorize(g, edge_mask, table)
-    precond = _tridiag_precond(g, f)
-    b = -f.b * _freeb(f.free, f.b)
-    z0 = precond(b)
+    with span("gn.linearize"):
+        f = _factorize(g, edge_mask, table)
+    with span("gn.precond"):
+        precond = _tridiag_precond(g, f)
 
     def body(s):
         x, r, z, p, rz = s
-        hp = _hvp(g, f, p)
+        with span("pcg.hvp"):
+            hp = _hvp(g, f, p)
         alpha = rz / torch.clamp(_dot(p, hp), min=1e-30)
         x2 = x + per(alpha, p) * p
         r2 = r - per(alpha, hp) * hp
-        z2 = precond(r2)
+        with span("pcg.precond_apply"):
+            z2 = precond(r2)
         rz2 = _dot(r2, z2)
         beta = rz2 / torch.clamp(rz, min=1e-30)
         p2 = z2 + per(beta, p) * p
@@ -210,8 +213,11 @@ def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
         return tuple(torch.where(per(done, o), o, nw)
                      for o, nw in zip(s, new)), ~done
 
-    x, *_ = masked_loop(body, (torch.zeros_like(b), b, z0, z0, _dot(b, z0)),
-                        cg_iters)
+    with span("gn.solve"):
+        b = -f.b * _freeb(f.free, f.b)
+        z0 = precond(b)
+        x, *_ = masked_loop(body, (torch.zeros_like(b), b, z0, z0,
+                                   _dot(b, z0)), cg_iters, "pcg.cg")
     return x
 
 
@@ -279,7 +285,7 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
 
     z0 = precond(rhs)
     x, *_ = masked_loop(body, (torch.zeros_like(rhs), rhs, z0, z0,
-                               _dot(rhs, z0)), cg_iters)
+                               _dot(rhs, z0)), cg_iters, "pcg.marginal")
     if g.poses.dim() == 3:
         cols = torch.gather(x, 2, qs[..., None, None].expand(
             bsz, 3 * q, 1, 3))[:, :, 0]                          # [B,3Q,3]
@@ -307,5 +313,7 @@ def optimize_pcg(g: PoseGraph, iterations: int = 5,
     table = _edge_table(g, edge_mask)
     for _ in range(iterations):
         dx = pcg_delta(g, edge_mask, cg_iters=cg_iters, table=table)
-        g = dataclasses.replace(g, poses=se2.oplus(g.poses, dx))
+        with span("gn.update"):
+            g = dataclasses.replace(g, poses=se2.oplus(g.poses, dx))
+        count("gn.iters.pcg")
     return g

@@ -26,22 +26,41 @@ from __future__ import annotations
 
 import torch
 
+from cg_mrslam_tpu_torch.utils import metrics
+
 _BASE = 24
 # iterations between the host's looks at a masked loop's done flags
 CHECK = 8
 
 
-def masked_loop(body, state, budget: int):
+def masked_loop(body, state, budget: int, name: str):
     """``while cond(s): s = body(s)`` over at most ``budget`` iterations,
     with the condition folded into ``body``: ``body(state) -> (new_state,
     active)``, where ``active`` (a bool tensor broadcastable against each
     state leaf's leading dims) says which entries took the step. Entries
     that are not active keep their value — ``body`` applies the mask
-    itself. ``state`` is a tuple of tensors. Returns the final state."""
-    for k in range(budget):
+    itself. ``state`` is a tuple of tensors. Returns the final state.
+
+    Each look copies the active flags to the host (one read, no kernel)
+    and counts them there. ``name`` keys the loop's counters in
+    :mod:`utils.metrics`: ``loop.<name>.iters`` (iterations run),
+    ``.looks``, ``.active`` (active entries summed over the looks),
+    ``.problems`` (entries × looks), and ``host_read.<name>`` (its
+    looks)."""
+    looks = active_sum = problems = k = 0
+    for k in range(1, budget + 1):
         state, active = body(state)
-        if (k + 1) % CHECK == 0 and not bool(torch.any(active)):
-            break
+        if k % CHECK == 0:
+            n = int(active.cpu().sum())
+            looks += 1
+            active_sum += n
+            problems += active.numel()
+            if not n:
+                break
+    for key, v in (("iters", k), ("looks", looks), ("active", active_sum),
+                   ("problems", problems)):
+        metrics.count(f"loop.{name}.{key}", v)
+    metrics.count(f"host_read.{name}", looks)
     return state
 
 
@@ -158,7 +177,7 @@ def spd_inverse(h: torch.Tensor, refine: int = 2, max_refine: int = 48,
     k0 = torch.zeros(h.shape[:batch_dims], dtype=torch.int32,
                      device=h.device)
     _, x, _, _, _ = masked_loop(body, (k0, x, r, rn, inf),
-                                max(refine, max_refine))
+                                max(refine, max_refine), "spd.newton_schulz")
     return x * d[..., :, None] * d[..., None, :]
 
 
@@ -203,5 +222,6 @@ def pcg_refine(h: torch.Tensor, b: torch.Tensor, minv: torch.Tensor,
                 torch.where(per(go, p), p2, p),
                 torch.where(per(go, rz), rz2, rz)), go
 
-    x, _, _, _ = masked_loop(body, (x, r, p, rz), max_iters)
+    x, _, _, _ = masked_loop(body, (x, r, p, rz), max_iters,
+                             "spd.pcg_refine")
     return x

@@ -13,7 +13,9 @@ the card as on the CPU; K2's single-grid entry at the lattices of
 on the card against the CPU, the visibility gate adding no host sync, and
 cells on the card equal to the CPU's for points on cell edges; the solves
 over a batch of graphs (dense, chain, PCG bands) repeated bit for bit,
-against the CPU's, and with as many host reads for 64 graphs as for 2.
+against the CPU's, and with as many host reads for 64 graphs as for 2;
+a batched PCG solve's host syncs, each one a host read the solver counts
+but one named copy, and its spans adding no kernel.
 Every test carries the ``cuda`` marker and skips where there is no NVIDIA
 GPU.
 
@@ -344,8 +346,8 @@ def test_masked_loop_on_the_card_matches_cpu(dev):
     x0 = torch.linspace(1.995, 40.0, 37)
     n0 = torch.zeros(37, dtype=torch.int32)
     for budget in (64, 61):
-        want = masked_loop(body, (x0, n0), budget)
-        got = masked_loop(body, (x0.to(dev), n0.to(dev)), budget)
+        want = masked_loop(body, (x0, n0), budget, "test")
+        got = masked_loop(body, (x0.to(dev), n0.to(dev)), budget, "test")
         torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6,
                                    atol=1e-6)
         torch.testing.assert_close(got[1].cpu(), want[1])
@@ -1243,3 +1245,46 @@ def test_batched_chain_host_reads_do_not_grow_with_batch(dev):
             g, 5, loop_cap=64, cg_iters=24, cg_tol=0.0))
         counts[b] = sum(where.values())
     assert counts[2] == counts[64] > 0, counts
+
+
+def test_pcg_solve_syncs_are_its_counted_host_reads(dev, monkeypatch):
+    """Under the profiler, a batched PCG solve through ``optimize_auto``
+    synchronizes with the host once for each host read the program counts
+    (``host_read.*``: the CG loop's looks, the band split's predicate, the
+    segment table's width) and once more at one place the test names: the
+    band split's copy of the PCG graphs' indices to the card, a blocking
+    host-to-device copy. The spans add no kernel: the same solve with the
+    spans switched off launches as many."""
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from cg_mrslam_tpu_torch.sim import graphs as GR
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+    from cg_mrslam_tpu_torch.utils import metrics as M
+    from perfbench.lib import trace as TR
+
+    g, order, _ = GR.build_merged_batch(8, device=dev)
+
+    def traced(spans):
+        M.reset()
+        with monkeypatch.context() as m:
+            if not spans:
+                m.setattr(M, "_profiling", lambda: False)
+            prof = TR.start()
+            with torch.profiler.record_function(TR.TICK):
+                gn.optimize_auto(g, 2, order=order, pcg_iters=16)
+            t = TR.stop(prof)
+        c = M.counts()
+        M.reset()
+        return t, c
+
+    gn.optimize_auto(g, 2, order=order, pcg_iters=16)         # warm
+    TR.warm()
+    on, counts = traced(True)
+    off, _ = traced(False)
+    reads = {k: v for k, v in counts.items() if k.startswith("host_read.")}
+    assert reads == {"host_read.pcg.cg": 2 * 16 // 8, "host_read.split": 1,
+                     "host_read.segment_table": 1}, counts
+    assert on.count_syncs() == sum(reads.values()) + 1
+    assert off.count_syncs() == on.count_syncs()
+    assert on.count_device("kernel") == off.count_device("kernel") > 0
