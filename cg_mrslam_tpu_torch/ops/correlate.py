@@ -27,7 +27,8 @@ compute) and the main path never launches them.
 
 The CUDA source is compiled with ``nvcc`` for ``sm_90a`` on first use into
 ``build/kernels/`` at the repository root, as a shared library with a
-plain C interface loaded through ``ctypes``.
+plain C interface loaded through ``ctypes`` (:func:`build`, which the
+PCG band's kernel pair, ``ops/pcg_hvp.py``, shares).
 """
 
 from __future__ import annotations
@@ -174,20 +175,21 @@ def _nvcc() -> str:
         return os.path.join(CUDA_HOME, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the score-volume kernel is "
-                           "built from csrc/score_volume.cu on first use")
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from csrc/ on first use")
     return found
 
 
 def build(src: Path = _SRC) -> Path:
-    """Compile a score-volume source (by default ``csrc/score_volume.cu``)
-    for ``sm_90a`` into ``build/kernels/``, skipped when a library built
-    from the same bytes is already there. ``ptxas``'s report (registers,
-    shared memory, spills of each kernel) is kept beside the library as
+    """Compile a CUDA source with a plain C interface (by default
+    ``csrc/score_volume.cu``) for ``sm_90a`` into ``build/kernels/`` as
+    ``lib<stem>-<sha1>.so``, skipped when a library built from the same
+    bytes is already there. ``ptxas``'s report (registers, shared memory,
+    spills of each kernel) is kept beside the library as
     ``<library>.ptxas.txt``. Returns the library's path."""
     text = Path(src).read_bytes()
     tag = hashlib.sha1(text).hexdigest()[:12]
-    lib = BUILD_DIR / f"libscore_volume-{tag}.so"
+    lib = BUILD_DIR / f"lib{Path(src).stem}-{tag}.so"
     if lib.exists() and Path(f"{lib}.ptxas.txt").exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -210,7 +212,8 @@ def build(src: Path = _SRC) -> Path:
 
 
 def ptxas_report(src: Path = _SRC) -> str:
-    """``ptxas -v``'s report of the library built from ``src``."""
+    """``ptxas -v``'s report of the library built from ``src`` (built
+    here if it is not yet)."""
     return Path(f"{build(src)}.ptxas.txt").read_text()
 
 

@@ -186,7 +186,7 @@ def sharded_optimize_pcg(g: PoseGraph, mesh, iterations: int = 5,
     bl, n = poses.shape[:2]
     dt = poses.dtype
     flat = flat_ends(poses, g.e_ij)
-    table = FS.edge_table(g.e_ij, g.emask, n)
+    table = FS.edge_table(g.e_ij, g.emask, n).table
     eye = torch.eye(3, dtype=dt, device=poses.device)
     for _ in range(iterations):
         (Ji, Jj, omega), b, diag, deg = _local_pcg_factors(

@@ -174,7 +174,7 @@ def _edge_table(g: PoseGraph, edge_mask) -> torch.Tensor:
     solve, so built once (one host read) and passed to every
     :func:`_assemble`."""
     is_chain, is_loop = chain_masks(g, edge_mask)
-    return edge_table(g.e_ij, is_chain | is_loop, g.poses.shape[-2])
+    return edge_table(g.e_ij, is_chain | is_loop, g.poses.shape[-2]).table
 
 
 def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
@@ -189,7 +189,7 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
     dev = g.poses.device
     is_chain, is_loop = chain_masks(g, edge_mask)
     if table is None:
-        table = edge_table(g.e_ij, is_chain | is_loop, n)
+        table = edge_table(g.e_ij, is_chain | is_loop, n).table
     e, Ji, Jj = linearize(g.poses, g.e_ij, g.e_z)
     omega = unpack_info(g.e_info)
     vi, vj = g.e_ij[..., 0].long(), g.e_ij[..., 1].long()

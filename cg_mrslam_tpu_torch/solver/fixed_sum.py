@@ -11,7 +11,9 @@ the same inputs is bit-identical. The table is built once per solve (one
 host read: its width) and reused by every CG iteration, since a solve's
 edge set does not change. (The dense band and the chain band's loop edges
 sum by one-hot products instead, the reference's form: static shapes, no
-host read.)
+host read.) The same lists in compressed-row form (:class:`Segments`'
+``entries`` and ``offsets``) come with the table at no further cost: the
+PCG band's Hessian-vector kernel walks them.
 
 Integer sums (vertex degrees) stay ``index_add_``: they are exact in any
 order.
@@ -19,18 +21,32 @@ order.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from cg_mrslam_tpu_torch.utils.metrics import count
 
 
+class Segments(NamedTuple):
+    """The contributions that land on each row, in contribution order,
+    twice: as a padded table and in compressed-row form."""
+
+    table: torch.Tensor    # [n, width] int64, padded with K (a zero)
+    entries: torch.Tensor  # [K] int64: row 0's entries, row 1's, ...,
+    #                        then the inactive contributions
+    offsets: torch.Tensor  # [n + 1] int64: row r's entries are
+    #                        entries[offsets[r]:offsets[r + 1]]
+
+
 def segment_table(targets: torch.Tensor, active: torch.Tensor,
-                  n: int) -> torch.Tensor:
-    """``[n, width]`` int64: row ``r`` lists, in order, the active
-    contributions ``k`` (``active[k]``) with ``targets[k] == r``, then
-    ``K`` (one past the last contribution: a zero) up to the width, the
-    largest count. Reads the width on the host: build it once per
-    solve."""
+                  n: int) -> Segments:
+    """:class:`Segments` of ``K`` contributions onto ``n`` rows. The
+    table's row ``r`` lists, in order, the active contributions ``k``
+    (``active[k]``) with ``targets[k] == r``, then ``K`` (one past the
+    last contribution: a zero) up to the width, the largest count; the
+    compressed rows list the same entries in the same order. Reads the
+    width on the host: build it once per solve."""
     k = targets.shape[0]
     dev = targets.device
     t = torch.where(active, targets.long(),
@@ -47,7 +63,7 @@ def segment_table(targets: torch.Tensor, active: torch.Tensor,
     # inactive contributions go to the spare row n (cut off below), all to
     # its first column
     slot[ts, torch.where(ts < n, rank, torch.zeros_like(rank))] = order
-    return slot[:n]
+    return Segments(slot[:n], order, starts)
 
 
 def segment_sum(table: torch.Tensor, vals: torch.Tensor,
@@ -66,8 +82,8 @@ def segment_sum(table: torch.Tensor, vals: torch.Tensor,
 
 
 def edge_table(e_ij: torch.Tensor, active: torch.Tensor,
-               n: int) -> torch.Tensor:
-    """The segment table of the ends ``[vi; vj]`` of the active edges:
+               n: int) -> Segments:
+    """The :class:`Segments` of the ends ``[vi; vj]`` of the active edges:
     contribution ``k < E`` is edge ``k``'s ``i`` end, ``E + k`` its ``j``
     end. For a batch (``e_ij [B, E, 2]``, ``active [B, E]``) the rows are
     the flattened ``[B·N]`` vertices (graph ``b``'s at ``b·N ..``) and the
@@ -85,8 +101,8 @@ def ends_sum(table: torch.Tensor, at_i: torch.Tensor, at_j: torch.Tensor,
              batch_dims: int = 1) -> torch.Tensor:
     """Per vertex ``[*B, N, ...]``, the sum of the edges' ``i`` end
     contributions ``at_i [*B, E, ...]`` and ``j`` end contributions
-    ``at_j`` through an :func:`edge_table` (``batch_dims`` leading batch
-    axes, 0 or 1)."""
+    ``at_j`` through an :func:`edge_table`'s ``table`` (``batch_dims``
+    leading batch axes, 0 or 1)."""
     lead = at_i.shape[:batch_dims]
     out = segment_sum(table, torch.cat([at_i.flatten(0, batch_dims),
                                         at_j.flatten(0, batch_dims)]))

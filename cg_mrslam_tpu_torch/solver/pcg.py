@@ -1,9 +1,11 @@
 """Matrix-free preconditioned conjugate gradient for large pose graphs.
 
 Port of ``cg_mrslam_tpu/solver/pcg.py``: the Hessian is never formed — a
-Hessian-vector product is gathers and a sum over each vertex's edges
-(through the solve's segment table, ``solver/fixed_sum.py``: one fixed
-order, bit-identical on repeat, where the reference scatter-adds) — and CG
+Hessian-vector product is a pass over the edges and a sum over each
+vertex's edge ends (in the order of the solve's segment table,
+``solver/fixed_sum.py``: one fixed order, bit-identical on repeat, where
+the reference scatter-adds; on the card a hand-written kernel pair,
+``ops/pcg_hvp.py``, on the CPU its plain version) — and CG
 is preconditioned by the damped (chain-tridiagonal +
 full-diagonal) matrix factorized with the chain solver's cyclic
 reduction. The fallback of the chain band for graphs that are not
@@ -31,9 +33,11 @@ from cg_mrslam_tpu_torch.core.graph import (PoseGraph, degrees,
                                             inverse_permutation,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
+from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
 from cg_mrslam_tpu_torch.solver.chain import (GROUP, _cr_apply, _cr_factor,
                                               _rows_of)
-from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, ends_sum
+from cg_mrslam_tpu_torch.solver.fixed_sum import (Segments, edge_table,
+                                                  ends_sum)
 from cg_mrslam_tpu_torch.solver.spd import masked_loop, per
 from cg_mrslam_tpu_torch.utils import se2
 from cg_mrslam_tpu_torch.utils.metrics import count, span
@@ -48,30 +52,29 @@ class EdgeFactors(NamedTuple):
     b: torch.Tensor       # [N, 3] gradient blocks (Σ JᵀΩe)
     diag: torch.Tensor    # [N, 3, 3] diagonal Hessian blocks
     free: torch.Tensor    # [N] bool
-    table: torch.Tensor   # [N, W] each vertex's active edge ends
-    hvp_edge: torch.Tensor  # [N, W] the edge of each table entry
-    hvp_J: torch.Tensor     # [N, W, 3, 3] its Jacobian at this vertex (0: pad)
+    segs: Segments        # each vertex's active edge ends (the table, and
+    #                       its compressed rows as int32 for the kernel)
     # (a batch: the per-edge and per-vertex fields with a leading [B]; the
-    # table, hvp_edge and hvp_J over the flattened [B·N] vertices and
-    # [B·E] edges)
+    # segments over the flattened [B·N] vertices and [2, B, E] edge ends)
 
 
-def _edge_table(g: PoseGraph, edge_mask) -> torch.Tensor:
-    """The solve's segment table (``solver/fixed_sum.py``): fixed for a
-    solve, so built once (one host read) and passed to every
+def _edge_table(g: PoseGraph, edge_mask) -> Segments:
+    """The solve's segments (``solver/fixed_sum.py``): fixed for a solve,
+    so built once (one host read) and passed to every
     :func:`_factorize`."""
     mask = g.emask if edge_mask is None else edge_mask
-    return edge_table(g.e_ij, mask, g.poses.shape[-2])
+    segs = edge_table(g.e_ij, mask, g.poses.shape[-2])
+    return segs._replace(entries=segs.entries.int(),
+                         offsets=segs.offsets.int())
 
 
 def _factorize(g: PoseGraph, edge_mask,
-               table: torch.Tensor | None = None) -> EdgeFactors:
+               segs: Segments | None = None) -> EdgeFactors:
     mask = g.emask if edge_mask is None else edge_mask
-    if table is None:
-        table = _edge_table(g, edge_mask)
+    if segs is None:
+        segs = _edge_table(g, edge_mask)
     nb = g.poses.dim() - 2
     dt = g.poses.dtype
-    dev = g.poses.device
     e, Ji, Jj = linearize(g.poses, g.e_ij, g.e_z)
     omega = unpack_info(g.e_info) * mask.to(dt)[..., None, None]
     JiT_O = Ji.transpose(-1, -2) @ omega
@@ -83,17 +86,10 @@ def _factorize(g: PoseGraph, edge_mask,
 
     free = g.vmask & ~g.fixed & (degrees(g.e_ij, mask, g.poses.shape[-2])
                                  > 0)
-    b = ends_sum(table, bi, bj, nb)
-    diag = ends_sum(table, Hii, Hjj, nb)
-    Jf, Jjf = Ji.flatten(0, nb), Jj.flatten(0, nb)
-    # the table's entries as (edge, Jacobian) pairs for the HVP: entry
-    # k < E is edge k's i end, E + k its j end, 2E the zero pad (E: the
-    # batch's edges, flattened)
-    ne = Jf.shape[0]
-    edge_of = torch.arange(2 * ne + 1, device=dev) % ne
-    J2 = torch.cat([Jf, Jjf, torch.zeros_like(Jf[:1])])
+    b = ends_sum(segs.table, bi, bj, nb)
+    diag = ends_sum(segs.table, Hii, Hjj, nb)
     return EdgeFactors(Ji=Ji, Jj=Jj, omega=omega, b=b, diag=diag, free=free,
-                       table=table, hvp_edge=edge_of[table], hvp_J=J2[table])
+                       segs=segs)
 
 
 def _freeb(free: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -132,7 +128,8 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
     # is already zero on masked edges)
     cm = ((vj == vi + 1) & free.gather(-1, vi) & free.gather(-1, vj)).to(dt)
     Hij = (f.Ji.transpose(-1, -2) @ f.omega @ f.Jj) * cm[..., None, None]
-    L = ends_sum(f.table, Hij.transpose(-1, -2), torch.zeros_like(Hij), nb)
+    L = ends_sum(f.segs.table, Hij.transpose(-1, -2), torch.zeros_like(Hij),
+                 nb)
     L[..., n - 1, :, :] = 0.0
 
     fact = _cr_factor(D, L, group=GROUP)
@@ -149,34 +146,36 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
 
 
 def _hvp(g: PoseGraph, f: EdgeFactors, x: torch.Tensor) -> torch.Tensor:
-    """``H @ x`` for ``x [..., N, 3]``: gathers, and per vertex one sum over
-    its table of edges (a fixed order)."""
-    if g.poses.dim() == 3:
-        return _hvp_batched(g, f, x)
-    vi, vj = g.e_ij[:, 0].long(), g.e_ij[:, 1].long()
-    # w = Ω (Jᵢ xᵢ + Jⱼ xⱼ) per edge (the edges are the batch of each einsum
-    # over all of x's leading columns); then y_n = Σ over n's table entries
-    # of Jᵀ w, one product contracting each vertex's entries and their 3
-    # components together
-    u = (torch.einsum("eij,...ej->...ei", f.Ji, x[..., vi, :])
-         + torch.einsum("eij,...ej->...ei", f.Jj, x[..., vj, :]))
-    w = torch.einsum("eij,...ej->...ei", f.omega, u)
-    y = torch.einsum("nwji,...nwj->...ni", f.hvp_J, w[..., f.hvp_edge, :])
-    return y * f.free[:, None].to(x.dtype)
+    """``H @ x`` for ``x [*B, *C, N, 3]`` (a batch's graph axis first, then
+    any column axes): on the card the kernel pair
+    (:data:`ops.pcg_hvp.PCG_HVP`), elsewhere :func:`_hvp_plain`."""
+    if x.is_cuda:
+        return PCG_HVP(g.e_ij, f.Ji, f.Jj, f.omega, f.segs.entries,
+                       f.segs.offsets, f.free, x)
+    return _hvp_plain(g, f, x)
 
 
-def _hvp_batched(g: PoseGraph, f: EdgeFactors, x: torch.Tensor):
-    """:func:`_hvp` of a batch, ``x [B, ..., N, 3]``: the per-vertex sums
-    over the flattened edges of the batch's table."""
-    b, n = g.poses.shape[:2]
+def _hvp_plain(g: PoseGraph, f: EdgeFactors, x: torch.Tensor):
+    """:func:`_hvp` in plain PyTorch: per edge ``w = Ω (Jᵢ xᵢ + Jⱼ xⱼ)``,
+    its ends' ``Jᵢᵀ w`` and ``Jⱼᵀ w``, and per vertex the sum of its ends
+    through the segment table (one fixed order), times ``free``."""
+    nb = g.poses.dim() - 2
+    n = x.shape[-2]
     vi, vj = g.e_ij[..., 0].long(), g.e_ij[..., 1].long()
-    u = (torch.einsum("beij,b...ej->b...ei", f.Ji, _rows_of(x, vi))
-         + torch.einsum("beij,b...ej->b...ei", f.Jj, _rows_of(x, vj)))
-    w = torch.einsum("beij,b...ej->b...ei", f.omega, u)
-    w = w.movedim(0, -3).flatten(-3, -2)                 # [..., B·E, 3]
-    y = torch.einsum("nwji,...nwj->...ni", f.hvp_J, w[..., f.hvp_edge, :])
-    y = y.unflatten(-2, (b, n)).movedim(-3, 0)           # [B, ..., N, 3]
-    return y * _freeb(f.free, x)
+    xf = x.reshape(x.shape[:nb] + (-1, n, 3))              # [*B, C, N, 3]
+
+    def ends(v):                  # x at one end of every edge: [*B, E, C, 3]
+        return (_rows_of(xf, v) if nb else xf[:, v]).movedim(nb, -2)
+
+    xi, xj = ends(vi), ends(vj)
+
+    def mv(m, v):                                # [*B, E, 3, 3] @ [.., C, 3]
+        return (m[..., None, :, :] @ v[..., None])[..., 0]
+
+    w = mv(f.omega, mv(f.Ji, xi) + mv(f.Jj, xj))
+    y = ends_sum(f.segs.table, mv(f.Ji.transpose(-1, -2), w),
+                 mv(f.Jj.transpose(-1, -2), w), nb)
+    return y.movedim(-2, nb).reshape(x.shape) * _freeb(f.free, x)
 
 
 def _dot(a, b):
@@ -185,14 +184,14 @@ def _dot(a, b):
 
 def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
               cg_iters: int = 64, tol: float = 1e-8,
-              table: torch.Tensor | None = None) -> torch.Tensor:
+              segs: Segments | None = None) -> torch.Tensor:
     """One GN update direction ``dx [N,3]`` by chain-preconditioned PCG
     on the true Hessian. As in the reference, a step whose new residual
     falls below ``tol`` is not taken: the state stays frozen before it
-    (per graph of a batch). ``table``: the solve's :func:`_edge_table`
+    (per graph of a batch). ``segs``: the solve's :func:`_edge_table`
     (built here if not given)."""
     with span("gn.linearize"):
-        f = _factorize(g, edge_mask, table)
+        f = _factorize(g, edge_mask, segs)
     with span("gn.precond"):
         precond = _tridiag_precond(g, f)
 
@@ -310,9 +309,9 @@ def optimize_pcg(g: PoseGraph, iterations: int = 5,
         gp = optimize_pcg(permute_vertices(g, order), iterations, edge_mask,
                           cg_iters)
         return dataclasses.replace(g, poses=gp.poses[..., inv, :])
-    table = _edge_table(g, edge_mask)
+    segs = _edge_table(g, edge_mask)
     for _ in range(iterations):
-        dx = pcg_delta(g, edge_mask, cg_iters=cg_iters, table=table)
+        dx = pcg_delta(g, edge_mask, cg_iters=cg_iters, segs=segs)
         with span("gn.update"):
             g = dataclasses.replace(g, poses=se2.oplus(g.poses, dx))
         count("gn.iters.pcg")

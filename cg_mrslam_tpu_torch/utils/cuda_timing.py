@@ -1,6 +1,6 @@
 """Measurement helpers for the kernel records of ``chip_smoke.py`` and
-``tools/bench_score_volume.py``: one CUDA launch timed three ways, the
-card's line, and the score volume's bounds.
+``tools/bench_score_volume.py`` (and ``tools/bench_pcg_hvp.py``): one
+CUDA launch timed three ways, the card's line, and the kernels' bounds.
 
 * :func:`event_ms` — CUDA events around ``reps`` back-to-back calls after
   warm-up: device time plus whatever the host's enqueue adds when it is
@@ -12,8 +12,10 @@ card's line, and the score volume's bounds.
   synchronization inside: the enqueue cost a host-bound caller pays.
 * :func:`volume_bound` — the least time of one score-volume call on an
   H100 SXM (bytes over the HBM rate, operations over the float32 rate);
+  :func:`hvp_bound` the same for one Hessian-vector product of the PCG
+  band (:func:`hvp_scratch_bytes`: what its kernel pair's split adds);
   :func:`issue_floor_ms` — the gather design's issue floor at a given SM
-  clock. Both are computed, not measured.
+  clock. All are computed, not measured.
 
 ``fn`` is a callable that launches on the current stream and allocates
 only through torch (allowed under graph capture).
@@ -75,6 +77,44 @@ def volume_bound(grid_bytes: int, b: int, t: int, p: int, n_off: int,
     :func:`volume_work` bytes over the HBM rate against its operations
     over the float32 rate."""
     n_bytes, n_ops = volume_work(grid_bytes, b, t, p, n_off, n_out, n_kept)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def hvp_work(b: int, c: int, n: int, e: int, listed: int,
+             itemsize: int = 4):
+    """``(bytes, operations)`` of one Hessian-vector product of the PCG
+    band over ``b`` graphs, ``c`` columns, ``n`` vertex and ``e`` edge
+    slots with ``listed`` active edge ends: the function's own inputs,
+    each read once — Jᵢ, Jⱼ, Ω, the edges' int32 ends, ``x``, the int32
+    compressed rows (their listed entries and the offsets) and the bool
+    ``free`` — and ``y`` written once; 78 operations a (edge, column)
+    (five 3×3 products and a vector add), an add a listed (end, column)
+    component and the ``free`` product. The edge ends' 3-vectors are an
+    intermediate of the two-pass design (:func:`hvp_scratch_bytes`)."""
+    s = itemsize
+    n_bytes = (3 * b * e * 9 * s + b * e * 2 * 4 + 2 * b * c * n * 3 * s
+               + listed * 4 + (b * n + 1) * 4 + b * n)
+    n_ops = 78 * b * e * c + 3 * listed * c + 3 * b * c * n
+    return n_bytes, n_ops
+
+
+def hvp_scratch_bytes(b: int, c: int, e: int, listed: int,
+                      itemsize: int = 4) -> int:
+    """The bytes the kernel pair's split adds to :func:`hvp_work`'s: the
+    edge pass writes one 3-vector a (edge end, column) and the vertex
+    pass reads the listed ones back."""
+    return 2 * b * e * c * 3 * itemsize + listed * c * 3 * itemsize
+
+
+def hvp_bound(b: int, c: int, n: int, e: int, listed: int,
+              itemsize: int = 4):
+    """``(bound_ms, bound_by)`` of one Hessian-vector product of the PCG
+    band: its :func:`hvp_work` bytes over the HBM rate against its
+    operations over the float32 rate."""
+    n_bytes, n_ops = hvp_work(b, c, n, e, listed, itemsize)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops

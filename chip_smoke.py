@@ -174,7 +174,22 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    each fraction in (0, 1.05]; (g) ``srslam`` at capacity 1024
    (``bench.py``'s latency row) to :data:`LATENCY_TICKS`: K1 3 per keyframe,
    finite chi2, a closure, ATE below odometry, at least 60 keyframes in
-   bucket 1024 and those off the dense band; latency p50/p99 per bucket.
+   bucket 1024 and those off the dense band; latency p50/p99 per bucket;
+   (h) the PCG band's Hessian-vector kernel pair (``csrc/pcg_hvp.cu``) at
+   ``fleet_pcg``'s shapes (2048 merged graphs under the chain order) and at
+   a batch-1 call of 48 columns: against its plain version (1e-5 of each
+   row's ``Σ|Jᵀ||Ω||J||x|``), timed as phase 4 times K1, beside the plain
+   version and the function's bytes bound (``tools/bench_pcg_hvp.py``'s
+   record), with its build time and ``ptxas -v`` report; added to the
+   ``kernels`` record, with the pair's launches on the main path.
+
+The pair's main-path launches: in phase 6, in phase 12's merged solve on
+the card and in phase 13 (c) and (d) on the card, its launch count is set
+to 0 just before and read just after, beside the CG iterations that the PCG
+band's loops ran there (``loop.pcg.cg.iters`` + ``loop.pcg.marginal.iters``,
+counted with the solver's loop counters on and no profiler); each stretch
+checks that the two are equal and not 0, and the ``kernels`` records of
+(h) carry the counts (``launches_main_path``, ``launches_by_stretch``).
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -185,6 +200,7 @@ when no CUDA device is available.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -296,6 +312,38 @@ CHAIN_CONVERGED = 1e-4
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the PCG Hessian-vector pair's launches and the PCG band's CG iterations
+# in each counted stretch of the main path (see the module docstring)
+HVP_STRETCHES: dict = {}
+
+
+@contextlib.contextmanager
+def hvp_counted(name: str):
+    """Count the PCG band's Hessian-vector kernel pair's launches over a
+    stretch that runs on the card only, beside the CG iterations the
+    band's loops run there (``solver.spd.masked_loop``'s counters, on for
+    the stretch without a profiler); checks that every iteration launched
+    the pair once, and stores both under ``HVP_STRETCHES[name]``."""
+    from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
+    from cg_mrslam_tpu_torch.utils import metrics as M
+
+    counted = collections.Counter()
+    count = M.count
+    M.count = lambda key, n=1: counted.update({key: n})
+    PCG_HVP.launches = 0
+    try:
+        yield
+    finally:
+        M.count = count
+    iters = counted["loop.pcg.cg.iters"] + counted["loop.pcg.marginal.iters"]
+    HVP_STRETCHES[name] = {"launches": PCG_HVP.launches, "cg_iters": iters}
+    log(f"pcg_hvp: {name}: {PCG_HVP.launches} launches, {iters} PCG "
+        f"iterations ({counted['loop.pcg.cg.iters']} solve, "
+        f"{counted['loop.pcg.marginal.iters']} marginal)")
+    assert PCG_HVP.launches == iters > 0, (name, PCG_HVP.launches,
+                                           dict(counted))
 
 
 def plain_of(args, ty, tx):
@@ -2029,12 +2077,14 @@ def phase_merged() -> None:
         if dev == "cuda":
             band = int(gn.auto_backend(g, order=order))
         chis[dev] = [float(chi2(g))]
-        for _ in range(5):
-            g, sec = timed_call(lambda: optimize_pcg(
-                g, iterations=1, cg_iters=96, order=order), dev == "cuda")
-            chis[dev].append(float(chi2(g)))
-            if dev == "cuda":
-                secs.append(sec)
+        with (hvp_counted("12 merged 1024") if dev == "cuda"
+              else contextlib.nullcontext()):
+            for _ in range(5):
+                g, sec = timed_call(lambda: optimize_pcg(
+                    g, iterations=1, cg_iters=96, order=order), dev == "cuda")
+                chis[dev].append(float(chi2(g)))
+                if dev == "cuda":
+                    secs.append(sec)
     for a, b in zip(chis["cuda"], chis["cpu"]):
         assert abs(a - b) <= 0.01 * b, (chis["cuda"], chis["cpu"])
     assert abs(chis["cuda"][-1] - 12.796) < 0.13, chis["cuda"]
@@ -2254,7 +2304,8 @@ def bench_merged(out: list) -> None:
     assert band == 2, band
     step = lambda x: optimize_pcg(x, 5, order=order,     # noqa: E731
                                   cg_iters=MERGED_PCG_ITERS)
-    sec, a, secs = bench_timed(step, g)
+    with hvp_counted("13c merged 512"):
+        sec, a, secs = bench_timed(step, g)
     c0, c1 = chi2(g), chi2(a)
     assert bool(torch.isfinite(c1).all())
     assert float(c1.mean()) < 1e-3 * float(c0.mean()), (c0.mean(), c1.mean())
@@ -2283,11 +2334,12 @@ def bench_merged(out: list) -> None:
         return [step(c).poses for c in chs]
 
     shifted = [dataclasses.replace(c, poses=c.poses + 1e-4) for c in chunks]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    poses = torch.cat(run(shifted))
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
+    with hvp_counted("13c merged 4096 in chunks"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses = torch.cat(run(shifted))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
     c0 = chi2(dataclasses.replace(g, poses=g.poses + 1e-4))
     c1 = chi2(dataclasses.replace(g, poses=poses))
     assert bool(torch.isfinite(c1).all())
@@ -2306,7 +2358,8 @@ def bench_pcg_64k(out: list) -> None:
     g = take(build_hospital_batch(1, n=65536, closures=1024, seed=1,
                                   device="cuda"), 0)
     step = lambda x: optimize_pcg(x, 5, cg_iters=96)     # noqa: E731
-    sec, a, secs = bench_timed(step, g, reps=2)
+    with hvp_counted("13d pcg 64k"):
+        sec, a, secs = bench_timed(step, g, reps=2)
     c0, c1 = chi2(g), chi2(a)
     assert math.isfinite(float(c1)) and float(c1) < 1e-3 * float(c0), (c0, c1)
     out.append(solves_line("PCG GN x5 (one 65,536-pose graph, 1024 "
@@ -2462,25 +2515,54 @@ def bench_latency(out: list, ticks: int = LATENCY_TICKS):
     return by_shape
 
 
-def phase_bench(matches) -> dict:
+def bench_hvp(out: list) -> list:
+    """(h) The PCG band's Hessian-vector kernel pair at the benchmark's
+    shapes, against its plain version; returns its kernel records."""
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.ops import pcg_hvp as PH
+    from tools.bench_pcg_hvp import hvp_records
+
+    t0 = time.perf_counter()
+    PH.PCG_HVP._entry(torch.float32)
+    log(f"bench hvp: pcg_hvp.cu built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s; ptxas -v:\n"
+        f"{K.ptxas_report(PH.SRC)}")
+    recs = hvp_records(2048)
+    for rec in recs:
+        rec.update(route="cuda", source="cg_mrslam_tpu_torch/csrc/pcg_hvp.cu",
+                   replaces="none (the JAX package leaves the product to XLA)",
+                   library_ms=None)
+        log(f"bench hvp: {rec['name']} {rec['shape']}: ms {rec['ms']:.4f}, "
+            f"device_ms {rec['device_ms']:.5f}, host_us "
+            f"{rec['host_us']:.1f}, bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']} (the split's scratch adds "
+            f"{rec['scratch_ms']:.5f} ms), plain {rec['plain_ms']:.3f} ms, "
+            f"{rec['device_ops_per_call']:.0f} device ops a call, error "
+            f"{rec['err_over_bar']:.3g} of the bar")
+    out.extend(recs)
+    return recs
+
+
+def phase_bench(matches) -> tuple:
     """Phase 13 (see the module docstring). Writes every workload's record
     to ``chiprun_out/phase13/bench.json``; returns K1's launches by shape
-    in (g)."""
+    in (g) and (h)'s kernel records."""
     PHASE13_DIR.mkdir(parents=True, exist_ok=True)
-    out, by_shape = [], {}
+    out, by_shape, hvp = [], {}, []
     for name, fn in (("dense", lambda: bench_dense(out)),
                      ("chain", lambda: bench_chain(out)),
                      ("merged", lambda: bench_merged(out)),
                      ("pcg 64k", lambda: bench_pcg_64k(out)),
                      ("gauge", lambda: bench_gauge(out, matches)),
                      ("sol", lambda: bench_sol(out)),
-                     ("latency", lambda: by_shape.update(bench_latency(out)))):
+                     ("latency", lambda: by_shape.update(bench_latency(out))),
+                     ("hvp", lambda: hvp.extend(bench_hvp(out)))):
         t0 = time.perf_counter()
         fn()
         torch.cuda.empty_cache()
         log(f"bench {name}: {time.perf_counter() - t0:.1f} s")
     (PHASE13_DIR / "bench.json").write_text(json.dumps(out, indent=1))
-    return by_shape
+    return by_shape, hvp
 
 
 def main() -> int:
@@ -2603,8 +2685,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     matches = MatchCapture()
     before = {}
-    sim, times, mlog = run_mr("cuda", capture=capture2, matches=matches,
-                              before_closure=before)
+    with hvp_counted("6 cg_mrslam"):
+        sim, times, mlog = run_mr("cuda", capture=capture2, matches=matches,
+                                  before_closure=before)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_mr = K.SCORE_VOLUME.launches
@@ -2749,10 +2832,16 @@ def main() -> int:
 
     # --- 13. the JAX bench's workloads on the card ---
     t0 = time.perf_counter()
-    k1_1024 = phase_bench(matches)
+    k1_1024, hvp_records = phase_bench(matches)
     for rec in records:
         if not rec.get("pair") and "launches_main_path" not in rec:
             rec["launches_srslam_1024"] = k1_1024.get(tuple(rec["shape"]), 0)
+    assert len(HVP_STRETCHES) == 5, sorted(HVP_STRETCHES)
+    for rec in hvp_records:       # the pair's, over every shape it ran at
+        rec.update(launches_main_path=sum(
+            v["launches"] for v in HVP_STRETCHES.values()),
+            launches_by_stretch=dict(HVP_STRETCHES))
+    records += hvp_records
     log(f"bench: phase 13 in {time.perf_counter() - t0:.1f} s")
 
     print(card, flush=True)

@@ -15,7 +15,10 @@ cells on the card equal to the CPU's for points on cell edges; the solves
 over a batch of graphs (dense, chain, PCG bands) repeated bit for bit,
 against the CPU's, and with as many host reads for 64 graphs as for 2;
 a batched PCG solve's host syncs, each one a host read the solver counts
-but one named copy, and its spans adding no kernel.
+but one named copy, and its spans adding no kernel; the PCG band's
+Hessian-vector kernel pair against its plain version at the benchmark's
+shapes and with 3Q marginal columns, bit-equal per graph under a permuted
+batch, and launched once per CG iteration.
 Every test carries the ``cuda`` marker and skips where there is no NVIDIA
 GPU.
 
@@ -585,7 +588,11 @@ def test_pcg_assembly_and_product_repeat_bit_for_bit(dev, live_graph):
 
         _repeats_identical(factorize)
         f = P._factorize(gp, None)
+        from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
+
+        before = PCG_HVP.launches
         _repeats_identical(lambda: P._hvp(gp, f, x))
+        assert PCG_HVP.launches == before + REPEATS
 
 
 def test_pcg_band_solve_repeats_bit_for_bit(dev):
@@ -601,6 +608,104 @@ def test_pcg_band_solve_repeats_bit_for_bit(dev):
                                                            order=order))
     assert set(gn.BAND_CALLS) == {("optimize_auto", "pcg"),
                                   ("marginal_covariance_auto", "pcg")}
+
+
+# The PCG band's Hessian-vector kernel pair (csrc/pcg_hvp.cu) against its
+# plain version: each row within 1e-5 of its Σ|Jᵀ||Ω||J||x| (the two sum
+# in other orders and the card contracts products into FMAs: about twenty
+# float32 roundings a term, ~1e-6 of that scale; 1e-5 leaves room).
+HVP_REL = 1e-5
+
+
+def _hvp_close(g, f, x, rel=HVP_REL):
+    from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
+    from cg_mrslam_tpu_torch.solver import pcg as P
+
+    before = PCG_HVP.launches
+    got = P._hvp(g, f, x)
+    assert PCG_HVP.launches == before + 1
+    want = P._hvp_plain(g, f, x)
+    fa = f._replace(Ji=f.Ji.abs(), Jj=f.Jj.abs(), omega=f.omega.abs())
+    bar = rel * P._hvp_plain(g, fa, x.abs())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert bool((err <= bar).all()), float((err - bar).max())
+    return got
+
+
+def _first(g):
+    return dataclasses.replace(g, **{f.name: getattr(g, f.name)[0]
+                                     for f in dataclasses.fields(g)})
+
+
+def test_pcg_hvp_kernel_matches_plain(dev):
+    """At ``fleet_pcg``'s shapes (2048 merged graphs under the chain
+    order, one column), at a batch-1 call with 3Q = 48 columns, and in
+    float64 (1e-12)."""
+    from cg_mrslam_tpu_torch.core.graph import permute_vertices
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+    from cg_mrslam_tpu_torch.solver import pcg as P
+
+    g, order, _ = build_merged_batch(2048, device=dev)
+    g = permute_vertices(g, order)
+    gen = torch.Generator(dev).manual_seed(3)
+    f = P._factorize(g, None)
+    _hvp_close(g, f, torch.randn(g.poses.shape, device=dev, generator=gen))
+    one = _first(g)
+    f1 = P._factorize(one, None)
+    _hvp_close(one, f1, torch.randn((48,) + one.poses.shape, device=dev,
+                                    generator=gen))
+    g64 = dataclasses.replace(one, **{k: getattr(one, k).double()
+                                      for k in ("poses", "e_z", "e_info")})
+    _hvp_close(g64, P._factorize(g64, None),
+               torch.randn((6,) + one.poses.shape, device=dev,
+                           generator=gen, dtype=torch.float64), rel=1e-12)
+
+
+def test_pcg_hvp_kernel_per_graph_under_permuted_batch(dev):
+    """The kernel's result for a graph does not depend on its place in
+    the batch or its batch-mates: the same factors, permuted, give the
+    permuted product bit for bit."""
+    from cg_mrslam_tpu_torch.core.graph import permute_vertices
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+    from cg_mrslam_tpu_torch.solver import pcg as P
+
+    g, order, _ = build_merged_batch(16, device=dev)
+    g = permute_vertices(g, order)
+    f = P._factorize(g, None)
+    x = torch.randn((16, 3) + g.poses.shape[1:], device=dev,
+                    generator=torch.Generator(dev).manual_seed(4))
+    perm = torch.randperm(16, generator=torch.Generator().manual_seed(5)
+                          ).to(dev)
+    gp = dataclasses.replace(g, **{k.name: getattr(g, k.name)[perm]
+                                   for k in dataclasses.fields(g)})
+    fp = f._replace(Ji=f.Ji[perm], Jj=f.Jj[perm], omega=f.omega[perm],
+                    free=f.free[perm], segs=P._edge_table(gp, None))
+    assert torch.equal(P._hvp(gp, fp, x[perm]), P._hvp(g, f, x)[perm])
+
+
+def test_pcg_hvp_kernel_launches_once_per_cg_iteration(dev, monkeypatch):
+    """A batched PCG solve and a batched marginal solve launch the kernel
+    pair once per CG iteration they run (``loop.pcg.*.iters``), and
+    nothing else of the band launches it."""
+    from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+    from cg_mrslam_tpu_torch.solver import pcg as P
+    from cg_mrslam_tpu_torch.utils import metrics as M
+
+    g, order, _ = build_merged_batch(8, device=dev)
+    monkeypatch.setattr(M, "_profiling", lambda: True)
+    M.reset()
+    before = PCG_HVP.launches
+    out = P.optimize_pcg(g, 3, order=order, cg_iters=24)
+    P.marginal_covariance_pcg(out, torch.arange(100, 200, 25, device=dev),
+                              cg_iters=40, order=order)
+    c = M.counts()
+    M.reset()
+    assert c["loop.pcg.cg.iters"] > 0 and c["loop.pcg.marginal.iters"] > 0
+    assert PCG_HVP.launches - before == (c["loop.pcg.cg.iters"]
+                                         + c["loop.pcg.marginal.iters"]), c
 
 
 def test_occupancy_on_the_card_matches_cpu(dev, live_graph):
