@@ -15,6 +15,7 @@ Usage (on the card; there is no device flag):
     python -m cg_mrslam_tpu_torch srslam --load robot-0-out.g2o -o more
     python -m cg_mrslam_tpu_torch srslam --carmen log.clf -o log
     python -m cg_mrslam_tpu_torch cg_mrslam --nRobots 2 --modality sim -o mr
+    python -m cg_mrslam_tpu_torch cg_mrslam --gauge-mode optimal -o mr
     python -m cg_mrslam_tpu_torch cg_mrslam --idRobot 0 --nRobots 2 -o udp &
     python -m cg_mrslam_tpu_torch cg_mrslam --idRobot 1 --nRobots 2 -o udp
 
@@ -22,7 +23,9 @@ With ``--idRobot r`` (r ≥ 0) the process runs robot r alone and exchanges
 datagrams with its peers (``--baseAddr``, ``--basePort``; the native UDP
 transport, which raises when it cannot be built or bound), paced to wall
 time by ``--tick-seconds`` from ``--start-at``. ``main(argv, device="cpu")``
-runs the same on the CPU (the tests do).
+runs the same on the CPU (the tests do). ``--gauge-mode optimal`` gives
+every star the uncertainty-minimizing gauge (``MRConfig.gauge_mode``), in
+process and per ``--idRobot`` alike.
 """
 
 from __future__ import annotations
@@ -142,7 +145,8 @@ def _build_config(a, n_robots: int = 1):
             max_score_mr=getattr(a, "maxScoreMR", 0.15),
             min_inliers_mr=getattr(a, "minInliersMR", 5),
             window_mr_loop_closure=getattr(a, "windowMRLoopClosure", 10),
-            sim_comm_range=getattr(a, "commRange", 5.0)),
+            sim_comm_range=getattr(a, "commRange", 5.0),
+            gauge_mode=getattr(a, "gauge_mode", "centroid")),
         map=MapConfig(
             resolution=a.map_resolution,
             occupied_threshold=a.occupied_threshold,
@@ -382,6 +386,8 @@ def _udp_loop(a, cfg, r, traj, node) -> int:
 
 
 def cmd_cg_mrslam(argv, device=None) -> int:
+    from cg_mrslam_tpu_torch.config import GAUGE_MODES
+
     p = argparse.ArgumentParser(prog="cg_mrslam")
     _common_flags(p)
     p.add_argument("--nRobots", type=int, default=2)
@@ -391,6 +397,12 @@ def cmd_cg_mrslam(argv, device=None) -> int:
     p.add_argument("--modality", choices=("sim", "real", "bag"),
                    default="sim")
     p.add_argument("--commRange", type=float, default=5.0)
+    p.add_argument("--gauge-mode", choices=GAUGE_MODES,
+                   default="centroid", dest="gauge_mode",
+                   help="the condensed star's gauge: the boundary vertex "
+                        "nearest the boundary's centroid, or the one whose "
+                        "star has the least total uncertainty (one "
+                        "condense per boundary vertex)")
     # the per-process deployment (the reference's shape: one cg_mrslam
     # process per robot, UDP between them — cg_mrslam.cpp + graph_comm)
     p.add_argument("--idRobot", type=int, default=-1,

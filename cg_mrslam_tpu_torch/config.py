@@ -158,6 +158,9 @@ class SlamConfig:
     loop_cap: int = 192
 
 
+GAUGE_MODES = ("centroid", "optimal")
+
+
 @dataclasses.dataclass(frozen=True)
 class MRConfig:
     """Multi-robot protocol parameters."""
@@ -208,6 +211,16 @@ class MRConfig:
     # hard in real runs (54-63 accepted closures → systematic truncation).
     closure_list_cap: int = 128    # boundary vertices per condensed request
     star_edges_cap: int = 128      # virtual edges per star
+    # the star's gauge (selectGauge, condensed_graph_buffer.cpp:290-316):
+    # "centroid" (selectGaugeCentroid, the default) or "optimal"
+    # (selectOptimalGauge, :252-288: one condense per valid boundary
+    # vertex, batched, so K times the work)
+    gauge_mode: str = "centroid"
+
+    def __post_init__(self):
+        if self.gauge_mode not in GAUGE_MODES:
+            raise ValueError(f"gauge_mode: want one of {GAUGE_MODES}, got "
+                             f"{self.gauge_mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)

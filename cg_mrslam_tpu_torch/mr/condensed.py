@@ -11,15 +11,23 @@ frame. The settle and the marginals go through the capacity-banded solver
 under the (owner, keyframe) slot permutation.
 
 Two gauge policies: the centroid (default) and the uncertainty-minimizing
-:func:`select_gauge_optimal`, which condenses every valid boundary vertex
-as a gauge in one batched :func:`condense` (the reference ``vmap``s the K
-condenses over every slot; invalid slots can never win, so leaving them
-out gives the same gauge).
+:func:`condense_optimal`, which condenses every valid boundary vertex as a
+gauge in one batched :func:`condense` and keeps the winner's star from
+that batch (the reference ``vmap``s the K condenses over every slot;
+invalid slots can never win, so leaving them out gives the same gauge).
+
+Spans and counters (``utils/metrics``, recorded while a profiler
+records): ``star.optimal`` around an optimal star; ``condense.settle``,
+``condense.marginals`` and ``condense.label`` inside every condense; the
+counters ``condense.graphs`` (graph copies condensed), ``condense.columns``
+(the marginals' 3K unit columns a copy, summed) and
+``host_read.gauge_candidates`` (the optimal star's one host read).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -30,6 +38,17 @@ from cg_mrslam_tpu_torch.core.graph import (PoseGraph, add_edges_masked,
 from cg_mrslam_tpu_torch.core.linearize import linearize
 from cg_mrslam_tpu_torch.solver import gauss_newton as gn
 from cg_mrslam_tpu_torch.utils import se2
+from cg_mrslam_tpu_torch.utils.metrics import count, span
+
+# The PCG band's CG budgets in a condense: the settle's GN×1 and the
+# marginals' column solves (the solver's defaults are 96 and 160). At those
+# defaults a star of robot 0's merged two-robot view at capacity 1024 lands
+# as far from the exact float64 star as one computed in TF32 (uncertainty
+# 0.8%, z 1e-3 m). At these the settle runs to its tolerance (376
+# iterations there) and the marginals to ~1e-5 of the uncertainty. Both
+# loops stop once every system has converged; other bands ignore them.
+SETTLE_PCG_ITERS = 384
+MARGINAL_PCG_ITERS = 384
 
 
 class Star(NamedTuple):
@@ -55,35 +74,51 @@ def select_gauge_centroid(g: PoseGraph, boundary: torch.Tensor,
     return row(boundary, torch.argmin(d))
 
 
+def condense_optimal(g: PoseGraph, boundary: torch.Tensor,
+                     valid: torch.Tensor, edge_mask: torch.Tensor,
+                     order: torch.Tensor | None = None
+                     ) -> tuple[Star, torch.Tensor]:
+    """The star of the uncertainty-minimizing gauge (reference
+    ``selectOptimalGauge``) and the total uncertainty ``[K]`` of every
+    boundary slot as the gauge (``computeOverallUncertainty``: Σ det(Ωₑ)⁻¹
+    over the valid edges of its star, +inf on an invalid slot). The valid
+    slots are read on the host (one read) and condensed once each, as one
+    batch of gauges; the first minimum wins and its star is taken from
+    the batch. With no valid slot, the first slot is the gauge (the first
+    minimum of an all-+inf row) and is condensed alone: its star carries
+    no valid edge."""
+    with span("star.optimal"):
+        u = torch.full(boundary.shape, float("inf"), dtype=g.poses.dtype,
+                       device=g.poses.device)
+        count("host_read.gauge_candidates")
+        idx = torch.nonzero(valid.cpu()).reshape(-1).to(boundary.device)
+        if idx.numel() == 0:
+            gauge = row(boundary, torch.argmin(u))
+            return condense(g, boundary, valid, gauge, edge_mask, order), u
+        stars = condense(g, boundary, valid, boundary[idx], edge_mask, order)
+        det = torch.linalg.det(unpack_info(stars.info))         # [K',K]
+        inv = 1.0 / torch.clamp(det, min=1e-30)
+        uk = torch.sum(torch.where(stars.valid, inv, torch.zeros_like(inv)),
+                       dim=-1)
+        u[idx] = uk
+        best = torch.argmin(uk)
+        return Star(*(row(f, best) for f in stars)), u
+
+
 def gauge_uncertainty(g: PoseGraph, boundary: torch.Tensor,
                       valid: torch.Tensor, edge_mask: torch.Tensor,
                       order: torch.Tensor | None = None) -> torch.Tensor:
-    """Total uncertainty ``[K]`` of every boundary slot as the gauge
-    (``computeOverallUncertainty``): Σ det(Ωₑ)⁻¹ over the valid edges of
-    its star, +inf on an invalid slot. The valid slots are read on the
-    host (one read) and condensed as one batch of gauges."""
-    u = torch.full(boundary.shape, float("inf"), dtype=g.poses.dtype,
-                   device=g.poses.device)
-    idx = torch.nonzero(valid.cpu()).reshape(-1).to(boundary.device)
-    if idx.numel() == 0:
-        return u
-    stars = condense(g, boundary, valid, boundary[idx], edge_mask, order)
-    det = torch.linalg.det(unpack_info(stars.info))             # [K',K]
-    inv = 1.0 / torch.clamp(det, min=1e-30)
-    u[idx] = torch.sum(torch.where(stars.valid, inv, torch.zeros_like(inv)),
-                       dim=-1)
-    return u
+    """The total uncertainty ``[K]`` of every boundary slot as the gauge
+    (:func:`condense_optimal`'s second output)."""
+    return condense_optimal(g, boundary, valid, edge_mask, order)[1]
 
 
 def select_gauge_optimal(g: PoseGraph, boundary: torch.Tensor,
                          valid: torch.Tensor, edge_mask: torch.Tensor,
                          order: torch.Tensor | None = None) -> torch.Tensor:
-    """Uncertainty-minimizing gauge (reference ``selectOptimalGauge``):
-    the candidate whose star has the smallest total uncertainty
-    (:func:`gauge_uncertainty`, one batched condense of the valid
-    candidates); the first minimum wins."""
-    u = gauge_uncertainty(g, boundary, valid, edge_mask, order)
-    return row(boundary, torch.argmin(u))
+    """Uncertainty-minimizing gauge (:func:`condense_optimal`'s star's
+    gauge)."""
+    return condense_optimal(g, boundary, valid, edge_mask, order)[0].gauge
 
 
 def condense(g: PoseGraph, boundary: torch.Tensor, valid: torch.Tensor,
@@ -104,33 +139,49 @@ def condense(g: PoseGraph, boundary: torch.Tensor, valid: torch.Tensor,
             lead + getattr(g, f.name).shape).contiguous()
             for f in dataclasses.fields(g)})
         edge_mask = edge_mask.expand(lead + edge_mask.shape)
+    copies = math.prod(lead)
+    count("condense.graphs", copies)
+    count("condense.columns", 3 * boundary.shape[0] * copies)
     # re-gauge: fix only the gauge vertex
     gl = gauge.long()[..., None]
     regauged = dataclasses.replace(
         g, fixed=torch.arange(n, device=dev) == gl)
-    # one GN settle on the selected edges
-    regauged = gn.optimize_auto(regauged, 1, edge_mask, order=order)
-
-    poses = regauged.poses
-    at_gauge = torch.gather(poses, -2, gl[..., None].expand(lead + (1, 3)))
-    z = se2.relative(at_gauge, poses[..., boundary.long(), :])
+    # one GN settle on the selected edges. On the PCG band the settle's
+    # and the marginals' CG stretches between the host's looks replay as
+    # captured graphs: the settle's steps are too small to keep the card
+    # busy (1.5 MB vectors at 128 copies), and a replay runs the
+    # marginals' at the same addresses every star, with no launch waiting
+    # on the host
+    with span("condense.settle"):
+        regauged = gn.optimize_auto(regauged, 1, edge_mask, order=order,
+                                    pcg_iters=SETTLE_PCG_ITERS,
+                                    pcg_graph=True)
 
     # boundary marginals conditioned on the gauge  [..., K,3,3]
-    cov = gn.marginal_covariance_auto(regauged, boundary, edge_mask,
-                                      order=order)
+    with span("condense.marginals"):
+        cov = gn.marginal_covariance_auto(regauged, boundary, edge_mask,
+                                          order=order,
+                                          pcg_cg_iters=MARGINAL_PCG_ITERS,
+                                          pcg_graph=True)
 
-    # move covariance into the edge error frame (g2o EdgeLabeler's J·Σ·Jᵀ)
-    bk = boundary.expand(lead + boundary.shape)
-    e_ij = torch.stack([gauge.to(boundary.dtype)[..., None].expand_as(bk),
-                        bk], dim=-1)
-    _, _, Jb = linearize(poses, e_ij, z)
-    cov_e = Jb @ cov @ Jb.transpose(-1, -2)
-    # symmetrize + tiny jitter before inversion (near-rigid chains give
-    # ill-conditioned covariances)
-    cov_e = 0.5 * (cov_e + cov_e.transpose(-1, -2))
-    cov_e = cov_e + 1e-9 * torch.eye(3, dtype=cov_e.dtype, device=dev)
-    omega, _ = torch.linalg.inv_ex(cov_e)
-    omega = 0.5 * (omega + omega.transpose(-1, -2))
+    with span("condense.label"):
+        poses = regauged.poses
+        at_gauge = torch.gather(poses, -2,
+                                gl[..., None].expand(lead + (1, 3)))
+        z = se2.relative(at_gauge, poses[..., boundary.long(), :])
+        # move covariance into the edge error frame (g2o EdgeLabeler's
+        # J·Σ·Jᵀ)
+        bk = boundary.expand(lead + boundary.shape)
+        e_ij = torch.stack([gauge.to(boundary.dtype)[..., None].expand_as(
+            bk), bk], dim=-1)
+        _, _, Jb = linearize(poses, e_ij, z)
+        cov_e = Jb @ cov @ Jb.transpose(-1, -2)
+        # symmetrize + tiny jitter before inversion (near-rigid chains
+        # give ill-conditioned covariances)
+        cov_e = 0.5 * (cov_e + cov_e.transpose(-1, -2))
+        cov_e = cov_e + 1e-9 * torch.eye(3, dtype=cov_e.dtype, device=dev)
+        omega, _ = torch.linalg.inv_ex(cov_e)
+        omega = 0.5 * (omega + omega.transpose(-1, -2))
 
     # the gauge's own slot (zero covariance) carries no edge
     ok = valid & (boundary != gauge[..., None])

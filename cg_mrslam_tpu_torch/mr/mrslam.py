@@ -501,17 +501,20 @@ def build_star(st: MRState, peer: int, gauge_mode: str = "centroid",
     (``computeCondensedGraph``, own edges only), under the (owner,
     keyframe) chain permutation. ``gauge_mode``: ``"centroid"`` (default,
     ``selectGaugeCentroid``) or ``"optimal"`` (``selectOptimalGauge``: one
-    condense per valid boundary vertex, batched, so K times the work)."""
+    condense per valid boundary vertex, batched, so K times the work:
+    :func:`condensed.condense_optimal`)."""
     slam = st.slam
     g, slots, valid, own, order, n_sel = star_inputs(st, peer, cap)
     cap = slots.shape[0]
     if gauge_mode == "optimal":
-        gauge = CG.select_gauge_optimal(g, slots, valid, own, order)
-    else:
+        star, _ = CG.condense_optimal(g, slots, valid, own, order)
+    elif gauge_mode == "centroid":
         gauge = CG.select_gauge_centroid(g, slots, valid)
-    star = CG.condense(g, slots, valid, gauge, own, order)
+        star = CG.condense(g, slots, valid, gauge, own, order)
+    else:
+        raise ValueError(f"unknown gauge_mode {gauge_mode!r}")
     return StarMsg(
-        gauge=row(slam.v_remote, gauge),
+        gauge=row(slam.v_remote, star.gauge),
         boundary=slam.v_remote[slots.long()],
         z=star.z, info=star.info,
         valid=star.valid & torch.any(valid),

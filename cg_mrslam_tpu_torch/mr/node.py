@@ -307,6 +307,7 @@ class RobotNode:
         if not bool(self.state.in_closures[peer].any()):
             return None, 0
         star = MR.build_star(self.state, peer,
+                             gauge_mode=self.cfg.mr.gauge_mode,
                              cap=self.cfg.mr.star_edges_cap)
         dropped, any_valid = torch.stack(
             [star.dropped.to(torch.int64),

@@ -170,7 +170,8 @@ class MultiRobotSim:
             for s in range(self.R):
                 if r != s and conn[r, s]:
                     stars[(s, r)] = MR.build_star(
-                        self.states[r], s, cap=cfg.mr.star_edges_cap)
+                        self.states[r], s, gauge_mode=cfg.mr.gauge_mode,
+                        cap=cfg.mr.star_edges_cap)
         for (dst, src), msg in stars.items():
             self.states[dst] = MR.receive_star(self.states[dst], src, msg,
                                                True)

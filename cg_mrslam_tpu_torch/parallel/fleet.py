@@ -81,11 +81,12 @@ def _consume(states: list, msgs: dict, conn: np.ndarray, gids,
     return out
 
 
-def _build(states: list, conn: np.ndarray, gids, build, cap: int) -> dict:
-    """``(src, dst) → build(state of src, dst, cap)`` for every consumed
-    pair whose sender ``src`` is in ``gids`` (``build_closure_list`` or
-    ``build_star``)."""
-    return {(src, dst): build(st, dst, cap=cap)
+def _build(states: list, conn: np.ndarray, gids, build, cap: int,
+           **kw) -> dict:
+    """``(src, dst) → build(state of src, dst, cap, **kw)`` for every
+    consumed pair whose sender ``src`` is in ``gids``
+    (``build_closure_list`` or ``build_star``)."""
+    return {(src, dst): build(st, dst, cap=cap, **kw)
             for st, src in zip(states, gids)
             for dst in range(conn.shape[0]) if conn[dst, src]}
 
@@ -100,7 +101,8 @@ def exchange(states: list, conn: np.ndarray, cfg: Config) -> list:
     lists = _build(states, conn, gids, MR.build_closure_list,
                    cfg.mr.closure_list_cap)
     states = _consume(states, lists, conn, gids, MR.receive_closure_list)
-    stars = _build(states, conn, gids, MR.build_star, cfg.mr.star_edges_cap)
+    stars = _build(states, conn, gids, MR.build_star, cfg.mr.star_edges_cap,
+                   gauge_mode=cfg.mr.gauge_mode)
     return _consume(states, stars, conn, gids, MR.receive_star)
 
 
@@ -219,6 +221,7 @@ def fleet_round_sharded(states: MR.MRState, conn, cfg: Config,
 
     # phase 3: stars built from the POST-list state
     cap = cfg.mr.star_edges_cap
-    stars = _gather_pairs(_build(local, conn, gids, MR.build_star, cap),
+    stars = _gather_pairs(_build(local, conn, gids, MR.build_star, cap,
+                                 gauge_mode=cfg.mr.gauge_mode),
                           _blank_star(local[0], cap), gids, rr, group)
     return stack_states(_consume(local, stars, conn, gids, MR.receive_star))

@@ -266,11 +266,12 @@ def _take(g: PoseGraph, idx: torch.Tensor) -> PoseGraph:
 
 
 def _split_bands(g, edge_mask, loop_cap, order, entry, chain_fn, pcg_fn,
-                 out_like):
+                 out_like, spans="band."):
     """Each graph of a batch through the chain band where it is chainable
     and PCG where it is not: one host read of the per-graph predicate for
-    the whole batch, each band run on its sub-batch, the results put back
-    in batch order in a tensor like ``out_like`` ``[B, ...]``."""
+    the whole batch, each band run on its sub-batch (under the span
+    ``spans`` + the band's name), the results put back in batch order in a
+    tensor like ``out_like`` ``[B, ...]``."""
     with span("solver.split"):
         ok = CH.chainable(g, edge_mask, loop_cap=loop_cap,
                           order=order).cpu()
@@ -282,7 +283,7 @@ def _split_bands(g, edge_mask, loop_cap, order, entry, chain_fn, pcg_fn,
                 BAND_CALLS[entry, band] += idx.numel()
                 em = edge_mask if edge_mask is None else edge_mask[idx]
                 sub = _take(g, idx)
-                with span("band." + band):
+                with span(spans + band):
                     res = fn(sub, em, idx)
                 out[idx] = res
         return out
@@ -311,13 +312,14 @@ def optimize_auto(g: PoseGraph, iterations: int = 5,
                   loop_cap: int = 64, order: torch.Tensor | None = None,
                   pcg_iters: int = 96, chain_cg_iters: int = 48,
                   chain_cg_tol: float = 1e-6,
-                  chol: bool = False) -> PoseGraph:
+                  chol: bool = False, pcg_graph: bool = False) -> PoseGraph:
     """``optimize`` with the capacity-banded backend: dense up to
     ``DENSE_MAX`` (``DENSE_MAX_CHOL`` with ``chol``); above it the chain
     band where :func:`solver.chain.chainable` holds and PCG otherwise;
     PCG above ``PCG_MIN``. ``order`` is the (owner, keyframe) slot
     permutation of merged multi-robot graphs (one for every graph of a
-    batch)."""
+    batch). ``pcg_graph``: the PCG band's CG iterations replayed as
+    captured CUDA graphs (``pcg.pcg_delta``'s ``cg_graph``)."""
     n = g.poses.shape[-2]
     with span("solver.optimize_auto"):
         if g.poses.dim() == 3 and _dense_max(chol) < n <= PCG_MIN:
@@ -329,7 +331,8 @@ def optimize_auto(g: PoseGraph, iterations: int = 5,
                     cg_iters=chain_cg_iters, cg_tol=chain_cg_tol).poses,
                 lambda gs, em, _: optimize_pcg(
                     gs, iterations=iterations, edge_mask=em,
-                    cg_iters=pcg_iters, order=order).poses, g.poses)
+                    cg_iters=pcg_iters, order=order,
+                    cg_graph=pcg_graph).poses, g.poses)
             return dataclasses.replace(g, poses=poses)
         if n > PCG_MIN:
             band = "pcg"
@@ -351,7 +354,7 @@ def optimize_auto(g: PoseGraph, iterations: int = 5,
                                          cg_tol=chain_cg_tol)
             return optimize_pcg(g, iterations=iterations,
                                 edge_mask=edge_mask, cg_iters=pcg_iters,
-                                order=order)
+                                order=order, cg_graph=pcg_graph)
 
 
 def marginal_covariance_auto(g: PoseGraph, query: torch.Tensor,
@@ -361,11 +364,15 @@ def marginal_covariance_auto(g: PoseGraph, query: torch.Tensor,
                              chain_cg_iters: int = 64,
                              chain_cg_tol: float = 1e-5,
                              pcg_cg_iters: int = 160,
-                             chol: bool = False) -> torch.Tensor:
+                             chol: bool = False,
+                             pcg_graph: bool = False) -> torch.Tensor:
     """``marginal_covariance`` with the same banding as
     :func:`optimize_auto` (chain-preconditioned CG column solves above the
     dense band, matrix-free PCG where the graph is not chainable). A batch
-    takes ``query`` ``[Q]`` (every graph) or ``[B, Q]``."""
+    takes ``query`` ``[Q]`` (every graph) or ``[B, Q]``; its banded
+    solves run under the spans ``marginal.chain`` and ``marginal.pcg``
+    (not ``band.*``, the optimizations' spans). ``pcg_graph``: as
+    :func:`optimize_auto`'s."""
     n = g.poses.shape[-2]
     if g.poses.dim() == 3 and n > _dense_max(chol):
         b = g.poses.shape[0]
@@ -377,7 +384,9 @@ def marginal_covariance_auto(g: PoseGraph, query: torch.Tensor,
                 gs, q[idx], em, loop_cap=loop_cap, order=order,
                 cg_iters=chain_cg_iters, cg_tol=chain_cg_tol),
             lambda gs, em, idx: marginal_covariance_pcg(
-                gs, q[idx], em, cg_iters=pcg_cg_iters, order=order), like)
+                gs, q[idx], em, cg_iters=pcg_cg_iters, order=order,
+                cg_graph=pcg_graph), like,
+            spans="marginal.")
     if n <= _dense_max(chol):
         BAND_CALLS["marginal_covariance_auto", "dense"] += 1
         return marginal_covariance(g, query, edge_mask, chol=chol)
@@ -389,7 +398,8 @@ def marginal_covariance_auto(g: PoseGraph, query: torch.Tensor,
                                             cg_tol=chain_cg_tol)
     BAND_CALLS["marginal_covariance_auto", "pcg"] += 1
     return marginal_covariance_pcg(g, query, edge_mask,
-                                   cg_iters=pcg_cg_iters, order=order)
+                                   cg_iters=pcg_cg_iters, order=order,
+                                   cg_graph=pcg_graph)
 
 
 class LMState(NamedTuple):

@@ -184,12 +184,16 @@ def _dot(a, b):
 
 def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
               cg_iters: int = 64, tol: float = 1e-8,
-              segs: Segments | None = None) -> torch.Tensor:
+              segs: Segments | None = None,
+              cg_graph: bool = False) -> torch.Tensor:
     """One GN update direction ``dx [N,3]`` by chain-preconditioned PCG
     on the true Hessian. As in the reference, a step whose new residual
     falls below ``tol`` is not taken: the state stays frozen before it
     (per graph of a batch). ``segs``: the solve's :func:`_edge_table`
-    (built here if not given)."""
+    (built here if not given). ``cg_graph``: on the card, replay the CG
+    iterations between the host's looks as one captured CUDA graph
+    (:func:`solver.spd.masked_loop`), for systems too small to keep the
+    device busy."""
     with span("gn.linearize"):
         f = _factorize(g, edge_mask, segs)
     with span("gn.precond"):
@@ -216,26 +220,29 @@ def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
         b = -f.b * _freeb(f.free, f.b)
         z0 = precond(b)
         x, *_ = masked_loop(body, (torch.zeros_like(b), b, z0, z0,
-                                   _dot(b, z0)), cg_iters, "pcg.cg")
+                                   _dot(b, z0)), cg_iters, "pcg.cg",
+                            graph=cg_graph)
     return x
 
 
 def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
                             edge_mask: torch.Tensor | None = None,
                             cg_iters: int = 160, tol: float = 1e-12,
-                            order: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            order: torch.Tensor | None = None,
+                            cg_graph: bool = False) -> torch.Tensor:
     """Marginal 3×3 covariance blocks ``[Q,3,3]`` by matrix-free PCG
     column solves (one linearization and factorization for all 3Q unit
     columns, batched), with the dense path's semantics: gauge from
     ``g.fixed``, the same 1e-6 jitter, the identity block for a queried
     vertex that is not free. A batch takes ``query`` ``[Q]`` (every
-    graph) or ``[B, Q]`` and gives ``[B, Q, 3, 3]``."""
+    graph) or ``[B, Q]`` and gives ``[B, Q, 3, 3]``. The CG body's spans:
+    ``marginal.hvp`` and ``marginal.precond_apply``. ``cg_graph``: as
+    :func:`pcg_delta`'s."""
     if order is not None:
         inv = inverse_permutation(order).long()
         return marginal_covariance_pcg(permute_vertices(g, order),
                                        inv[query.long()], edge_mask,
-                                       cg_iters, tol)
+                                       cg_iters, tol, cg_graph=cg_graph)
     dt = g.poses.dtype
     dev = g.poses.device
     f = _factorize(g, edge_mask)
@@ -244,7 +251,9 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
     precond = _tridiag_precond(g, f)
 
     def hvp(x):
-        return _hvp(g, f, x) + 1e-6 * x * _freeb(f.free, x)
+        with span("marginal.hvp"):
+            y = _hvp(g, f, x)
+        return y + 1e-6 * x * _freeb(f.free, x)
 
     if g.poses.dim() == 3:
         bsz = g.poses.shape[0]
@@ -273,7 +282,8 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
         alpha = rz / torch.clamp(_dot(p, hp), min=1e-30)
         x2 = x + col(alpha) * p
         r2 = r - col(alpha) * hp
-        z2 = precond(r2)
+        with span("marginal.precond_apply"):
+            z2 = precond(r2)
         rz2 = _dot(r2, z2)
         beta = rz2 / torch.clamp(rz, min=1e-30)
         p2 = z2 + col(beta) * p
@@ -284,7 +294,8 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
 
     z0 = precond(rhs)
     x, *_ = masked_loop(body, (torch.zeros_like(rhs), rhs, z0, z0,
-                               _dot(rhs, z0)), cg_iters, "pcg.marginal")
+                               _dot(rhs, z0)), cg_iters, "pcg.marginal",
+                        graph=cg_graph)
     if g.poses.dim() == 3:
         cols = torch.gather(x, 2, qs[..., None, None].expand(
             bsz, 3 * q, 1, 3))[:, :, 0]                          # [B,3Q,3]
@@ -300,18 +311,21 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
 def optimize_pcg(g: PoseGraph, iterations: int = 5,
                  edge_mask: torch.Tensor | None = None,
                  cg_iters: int = 64,
-                 order: torch.Tensor | None = None) -> PoseGraph:
+                 order: torch.Tensor | None = None,
+                 cg_graph: bool = False) -> PoseGraph:
     """GN iterations with PCG inner solves. ``order`` solves under a slot
     permutation (the tridiagonal preconditioner keys on slot-adjacent
-    edges) and returns poses in original slot order."""
+    edges) and returns poses in original slot order. ``cg_graph``: as
+    :func:`pcg_delta`'s."""
     if order is not None:
         inv = inverse_permutation(order).long()
         gp = optimize_pcg(permute_vertices(g, order), iterations, edge_mask,
-                          cg_iters)
+                          cg_iters, cg_graph=cg_graph)
         return dataclasses.replace(g, poses=gp.poses[..., inv, :])
     segs = _edge_table(g, edge_mask)
     for _ in range(iterations):
-        dx = pcg_delta(g, edge_mask, cg_iters=cg_iters, segs=segs)
+        dx = pcg_delta(g, edge_mask, cg_iters=cg_iters, segs=segs,
+                       cg_graph=cg_graph)
         with span("gn.update"):
             g = dataclasses.replace(g, poses=se2.oplus(g.poses, dx))
         count("gn.iters.pcg")

@@ -20,6 +20,14 @@ reference's ``vmap``), each problem keeps its own exit: its own worst
 residual decides when it stops, and a stopped problem stays frozen while
 the others run on. The host still looks once every :data:`CHECK`
 iterations, whatever the batch size.
+
+On the card a loop whose iterations are too small to keep the device busy
+can run its stretches between looks as one captured CUDA graph
+(``masked_loop(..., graph=True)``): the first stretch runs as written,
+the next is captured once and replayed for the rest, so the host launches
+one graph a look instead of every kernel of :data:`CHECK` iterations. The
+kernels and their order are those of the plain loop. While a profiler
+records, the loop runs as written, so that its spans keep their events.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ _BASE = 24
 CHECK = 8
 
 
-def masked_loop(body, state, budget: int, name: str):
+def masked_loop(body, state, budget: int, name: str, graph: bool = False):
     """``while cond(s): s = body(s)`` over at most ``budget`` iterations,
     with the condition folded into ``body``: ``body(state) -> (new_state,
     active)``, where ``active`` (a bool tensor broadcastable against each
@@ -46,10 +54,23 @@ def masked_loop(body, state, budget: int, name: str):
     :mod:`utils.metrics`: ``loop.<name>.iters`` (iterations run),
     ``.looks``, ``.active`` (active entries summed over the looks),
     ``.problems`` (entries × looks), and ``host_read.<name>`` (its
-    looks)."""
+    looks). With ``graph``, on CUDA tensors and while no profiler
+    records, the stretches after the first replay one captured graph of
+    :data:`CHECK` iterations (``body`` must be free of host reads and
+    must not write its inputs)."""
     looks = active_sum = problems = k = 0
-    for k in range(1, budget + 1):
-        state, active = body(state)
+    graph = graph and state[0].is_cuda and not metrics._profiling()
+    stretch = None
+    while k < budget:
+        steps = min(CHECK, budget - k)
+        if graph and stretch is None and k and steps == CHECK:
+            stretch = _GraphedStretch(body, state, CHECK)
+        if stretch is not None and steps == CHECK:
+            state, active = stretch(state)
+        else:
+            for _ in range(steps):
+                state, active = body(state)
+        k += steps
         if k % CHECK == 0:
             n = int(active.cpu().sum())
             looks += 1
@@ -62,6 +83,54 @@ def masked_loop(body, state, budget: int, name: str):
         metrics.count(f"loop.{name}.{key}", v)
     metrics.count(f"host_read.{name}", looks)
     return state
+
+
+# a device's capture stream (one, so that its library workspaces are made
+# once), the memory pool its captures share, and its last captured graph:
+# kept until the next capture has begun, so that the pool stays open and
+# the next capture reuses its memory (a graph is never replayed once its
+# loop has ended)
+_CAPTURE: dict = {}
+
+
+class _GraphedStretch:
+    """``steps`` iterations of a :func:`masked_loop` body captured as one
+    CUDA graph over a static copy of ``state``: a call copies the state in
+    where it is not that copy already, replays the graph on the current
+    stream and returns the static state (the last iteration's written
+    back into it) and the last iteration's active flags."""
+
+    def __init__(self, body, state, steps: int):
+        dev = state[0].device
+        main = torch.cuda.current_stream(dev)
+        if dev not in _CAPTURE:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):         # the stream's first use
+                body(state)
+            _CAPTURE[dev] = [side, torch.cuda.graph_pool_handle(), None]
+        side, pool, _ = _CAPTURE[dev]
+        self.static = tuple(s.clone() for s in state)
+        self.graph = torch.cuda.CUDAGraph()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.graph.capture_begin(pool=pool)
+            cur = self.static
+            for _ in range(steps):
+                cur, active = body(cur)
+            for dst, src in zip(self.static, cur):
+                dst.copy_(src)
+            self.graph.capture_end()
+        main.wait_stream(side)
+        _CAPTURE[dev][2] = self.graph
+        self.active = active
+
+    def __call__(self, state):
+        if state is not self.static:
+            for dst, src in zip(self.static, state):
+                dst.copy_(src)
+        self.graph.replay()
+        return self.static, self.active
 
 
 def _worst(x: torch.Tensor, batch_dims: int) -> torch.Tensor:

@@ -168,9 +168,11 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    start, two graphs within 1% of batch-1 CPU solves, element 0 beside the
    dense CPU oracle 12.796) and 4096 as 8 chunks of 512; (d) PCG on one
    65,536-pose graph (96 CG), chi2 below 1e-3 of its start; (e) the optimal
-   gauge at phase 6's first star as one batched condense: each candidate's
+   gauge at phase 6's first star by ``condense_optimal``: each candidate's
    uncertainty within 1e-4 of its own condense on the card, the CPU's gauge,
-   the time beside the per-candidate loop's; (f) ``utils/sol.report()``,
+   the time beside the per-candidate loop's; then the benchmark cell's star
+   (128 candidates on the merged fixture): the PCG band only, every number
+   finite, its time and peak memory; (f) ``utils/sol.report()``,
    each fraction in (0, 1.05]; (g) ``srslam`` at capacity 1024
    (``bench.py``'s latency row) to :data:`LATENCY_TICKS`: K1 3 per keyframe,
    finite chi2, a closure, ATE below odometry, at least 60 keyframes in
@@ -184,7 +186,8 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    ``kernels`` record, with the pair's launches on the main path.
 
 The pair's main-path launches: in phase 6, in phase 12's merged solve on
-the card and in phase 13 (c) and (d) on the card, its launch count is set
+the card and in phase 13 (c), (d) and (e)'s 128-candidate star on the
+card, its launch count is set
 to 0 just before and read just after, beside the CG iterations that the PCG
 band's loops ran there (``loop.pcg.cg.iters`` + ``loop.pcg.marginal.iters``,
 counted with the solver's loop counters on and no profiler); each stretch
@@ -266,6 +269,7 @@ LC_LEVELS = {4: "level0", 2: "refine2", 1: "refine1"}
 LC_REGIONS = 4
 N_MATCHES = 12        # (e): accepted global searches also gated on the CPU
 STAR_CAP = 8          # (f): at most this many optimal-gauge candidates
+STAR_CELL_K = 128     # 13 (e): the benchmark cell's optimal-gauge request
 LM_ITERS = 15
 PERTURB = (0.3, 0.1)  # (g): σ of the free poses' noise, m and rad
 # phase 12: the stream's ticks, FleetSim's ticks past phase 6's first
@@ -325,18 +329,22 @@ def hvp_counted(name: str):
     stretch that runs on the card only, beside the CG iterations the
     band's loops run there (``solver.spd.masked_loop``'s counters, on for
     the stretch without a profiler); checks that every iteration launched
-    the pair once, and stores both under ``HVP_STRETCHES[name]``."""
+    the pair once, and stores both under ``HVP_STRETCHES[name]``. The
+    band's loops run as written over the stretch: a replayed graph
+    launches the pair without a call that the wrapper counts."""
     from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
+    from cg_mrslam_tpu_torch.solver import pcg as P
     from cg_mrslam_tpu_torch.utils import metrics as M
 
     counted = collections.Counter()
-    count = M.count
+    count, loop = M.count, P.masked_loop
     M.count = lambda key, n=1: counted.update({key: n})
+    P.masked_loop = lambda *a, graph=False, **k: loop(*a, **k)
     PCG_HVP.launches = 0
     try:
         yield
     finally:
-        M.count = count
+        M.count, P.masked_loop = count, loop
     iters = counted["loop.pcg.cg.iters"] + counted["loop.pcg.marginal.iters"]
     HVP_STRETCHES[name] = {"launches": PCG_HVP.launches, "cg_iters": iters}
     log(f"pcg_hvp: {name}: {PCG_HVP.launches} launches, {iters} PCG "
@@ -2396,12 +2404,12 @@ def bench_gauge(out: list, matches) -> None:
                                                   torch.zeros_like(inv)))))
         return u1
 
-    batched = lambda: CG.gauge_uncertainty(g, slots, valid,  # noqa: E731
-                                           own, order)
+    batched = lambda: CG.condense_optimal(g, slots, valid,  # noqa: E731
+                                          own, order)
     batched()                     # warm-up of both, then one timed call each
     loop()
     gn.BAND_CALLS.clear()
-    u, sec = timed_call(batched, True)
+    (star, u), sec = timed_call(batched, True)
     bands = dict(gn.BAND_CALLS)
     u1, loop_sec = timed_call(loop, True)
     u = u.cpu().double().numpy()
@@ -2410,11 +2418,11 @@ def bench_gauge(out: list, matches) -> None:
     rel = np.abs(u[live] - u1[live]) / np.abs(u1[live])
     assert np.all(np.isinf(u[~live])), u
     assert np.all(rel <= 1e-4), (u, u1)
-    gauge = int(CG.select_gauge_optimal(g, slots, valid, own, order))
+    gauge = int(star.gauge)
     cpu = torch.device("cpu")
     st_cpu = convert.mr_state_from_numpy(convert.to_numpy(st), cpu)
     gc, sc, vc, oc, orc, _ = MR.star_inputs(st_cpu, peer)
-    gauge_cpu = int(CG.select_gauge_optimal(gc, sc, vc, oc, orc))
+    gauge_cpu = int(CG.condense_optimal(gc, sc, vc, oc, orc)[0].gauge)
     assert gauge == gauge_cpu, (gauge, gauge_cpu)
     out.append({"workload": "optimal gauge (batched condense)", "tick": t,
                 "candidates": k, "requested": n_req, "seconds": sec,
@@ -2426,6 +2434,48 @@ def bench_gauge(out: list, matches) -> None:
         f"loop (host clock, synchronized; bands {bands}); uncertainties "
         f"within {rel.max():.3g} relative; gauge {gauge} on the card and "
         f"the CPU")
+
+    # the benchmark cell's star: 128 candidates on the merged fixture
+    g, slots, own, order = merged_star_inputs(STAR_CELL_K)
+    valid = torch.ones(STAR_CELL_K, dtype=torch.bool, device="cuda")
+    gn.BAND_CALLS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with hvp_counted("13e star 128"):
+        (star, u), sec = timed_call(
+            lambda: CG.condense_optimal(g, slots, valid, own, order), True)
+    peak = torch.cuda.max_memory_allocated()
+    bands = dict(gn.BAND_CALLS)
+    assert set(b for _, b in bands) == {"pcg"}, bands
+    assert bool(torch.isfinite(u).all()) and bool(
+        torch.isfinite(star.z).all()) and bool(torch.isfinite(
+            star.info).all())
+    out.append({"workload": "optimal gauge, the benchmark cell's star "
+                            "(128 candidates, merged fixture)",
+                "candidates": STAR_CELL_K, "seconds": sec,
+                "peak_bytes": int(peak), "gauge": int(star.gauge),
+                "bands": {f"{e} {b}": v for (e, b), v in bands.items()}})
+    log(f"bench gauge: the cell's star, K = {STAR_CELL_K} on the merged "
+        f"fixture: {sec:.3f} s, peak {peak / 1e9:.2f} GB, gauge "
+        f"{int(star.gauge)}, bands {bands}")
+
+
+def merged_star_inputs(k: int):
+    """The merged fixture's graph on the card, robot 0's own edges, its
+    (owner, keyframe) order and the ``k`` newest robot-0 vertices of its
+    inter-robot closures (the benchmark cell's request)."""
+    from cg_mrslam_tpu_torch.core.graph import own_edge_mask
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+
+    gb, order, _ = build_merged_batch(1, device="cuda")
+    g = take(gb, 0)
+    z = np.load(MERGED)
+    vo, vr = z["v_owner"], z["v_remote"]
+    ij = g.e_ij[g.emask].cpu().numpy()
+    ends = np.unique(ij[vo[ij[:, 0]] != vo[ij[:, 1]]])
+    mine = ends[vo[ends] == 0]
+    slots = mine[np.argsort(-vr[mine], kind="stable")][:k]
+    return (g, torch.as_tensor(slots.astype(np.int32), device="cuda"),
+            own_edge_mask(g, 0), order)
 
 
 def bench_sol(out: list) -> None:
@@ -2836,7 +2886,7 @@ def main() -> int:
     for rec in records:
         if not rec.get("pair") and "launches_main_path" not in rec:
             rec["launches_srslam_1024"] = k1_1024.get(tuple(rec["shape"]), 0)
-    assert len(HVP_STRETCHES) == 5, sorted(HVP_STRETCHES)
+    assert len(HVP_STRETCHES) == 6, sorted(HVP_STRETCHES)
     for rec in hvp_records:       # the pair's, over every shape it ran at
         rec.update(launches_main_path=sum(
             v["launches"] for v in HVP_STRETCHES.values()),

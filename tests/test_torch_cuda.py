@@ -18,7 +18,9 @@ a batched PCG solve's host syncs, each one a host read the solver counts
 but one named copy, and its spans adding no kernel; the PCG band's
 Hessian-vector kernel pair against its plain version at the benchmark's
 shapes and with 3Q marginal columns, bit-equal per graph under a permuted
-batch, and launched once per CG iteration.
+batch, and launched once per CG iteration; the benchmark cell's
+optimal-gauge star (128 candidates on the merged fixture) against the
+plain float64 oracle run on the card.
 Every test carries the ``cuda`` marker and skips where there is no NVIDIA
 GPU.
 
@@ -355,6 +357,55 @@ def test_masked_loop_on_the_card_matches_cpu(dev):
                                    atol=1e-6)
         torch.testing.assert_close(got[1].cpu(), want[1])
         assert int(want[1].min()) < 24 and int(want[1].max()) == budget
+
+
+def test_graphed_masked_loop_matches_the_plain_loop(dev):
+    """``masked_loop(..., graph=True)`` on the card, its stretches after
+    the first replayed as one captured graph: the same exit iteration
+    and the same state as the loop as written, bit for bit, where the
+    looks stop it, where the budget does, and where the budget is not a
+    multiple of the look's stride (the tail runs as written)."""
+    from cg_mrslam_tpu_torch.solver.spd import masked_loop
+
+    stops = torch.tensor([3, 9, 17, 40], device=dev)
+
+    def body(s):
+        k, x = s
+        go = k + 1 <= stops
+        return (k + 1, torch.where(go, 0.9 * x + 0.2, x)), go
+
+    x0 = torch.linspace(-3.0, 5.0, 4, device=dev)
+    for budget in (64, 61, 20, 8):
+        k0 = torch.zeros((), dtype=torch.long, device=dev)
+        want = masked_loop(body, (k0, x0), budget, "test")
+        got = masked_loop(body, (k0, x0), budget, "test", graph=True)
+        assert int(got[0]) == int(want[0]) == min(budget, 48)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(x0, torch.linspace(-3.0, 5.0, 4, device=dev))
+
+
+def test_graphed_pcg_settle_and_marginals_match_the_plain_loops(dev):
+    """A batched GN×1 and marginal solve on the PCG band with their CG
+    iterations replayed as captured graphs (``cg_graph``, as a condense
+    runs them) give the poses and covariances of the plain loops, bit for
+    bit: the same kernels in the same order. 44 iterations: five replayed
+    stretches after the first and a tail of four; and again at a budget
+    the settle's tolerance ends."""
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+    from cg_mrslam_tpu_torch.solver import pcg as P
+
+    g, order, _ = build_merged_batch(8, device=dev)
+    for cg_iters in (44, 400):
+        want = P.optimize_pcg(g, 1, order=order, cg_iters=cg_iters).poses
+        got = P.optimize_pcg(g, 1, order=order, cg_iters=cg_iters,
+                             cg_graph=True).poses
+        assert torch.equal(got, want)
+    g = dataclasses.replace(g, poses=want)
+    q = torch.arange(100, 300, 25, device=dev)
+    want = P.marginal_covariance_pcg(g, q, cg_iters=44, order=order)
+    got = P.marginal_covariance_pcg(g, q, cg_iters=44, order=order,
+                                    cg_graph=True)
+    assert torch.equal(got, want)
 
 
 def _merged_graph(n_own, n_loops, cap_v=300, cap_e=600, seed=0):
@@ -1393,3 +1444,56 @@ def test_pcg_solve_syncs_are_its_counted_host_reads(dev, monkeypatch):
     assert on.count_syncs() == sum(reads.values()) + 1
     assert off.count_syncs() == on.count_syncs()
     assert on.count_device("kernel") == off.count_device("kernel") > 0
+
+
+def test_optimal_star_on_the_card_matches_the_oracle(dev):
+    """The ``star_optimal`` benchmark cell's star: robot 0's own edges of
+    the merged fixture (capacity 1024, 896 edge slots) with pose noise,
+    the 128 newest robot-0 vertices of its inter-robot closures as the
+    boundary and the candidates, by ``condense_optimal`` on the card,
+    against ``tests/oracle_condense.py`` (float64, on the card). Bars, the
+    cell's limits on the same quantities: each candidate's uncertainty
+    rtol 1e-4, ``z`` 5e-4 (m, rad), each edge's Ω 1e-4 of its Frobenius
+    norm: float32 CG at the condense's budgets against float64 on a
+    3072-wide system (the cell's 13 calibration seeds read at most 8.3e-6,
+    4.5e-5 and 2.2e-6); the gauge's regret in the oracle's uncertainties
+    below 1e-4 (128 candidates hold near ties)."""
+    import oracle_condense as oracle
+    from test_torch_optimal_star import _merged_graph
+
+    from cg_mrslam_tpu_torch.core import graph as G
+    from cg_mrslam_tpu_torch.mr import condensed as CG
+    from cg_mrslam_tpu_torch.solver import gauss_newton as gn
+
+    g, boundary, order = _merged_graph(seed=7, k=128)
+    gd = G.PoseGraph(*(getattr(g, f.name).to(dev)
+                       for f in dataclasses.fields(g)))
+    own = G.own_edge_mask(gd, 0)
+    valid = torch.ones(128, dtype=torch.bool, device=dev)
+    gn.BAND_CALLS.clear()
+    star, u = CG.condense_optimal(gd, boundary.to(dev), valid, own,
+                                  order.to(dev))
+    assert gn.BAND_CALLS == {("optimize_auto", "pcg"): 128,
+                             ("marginal_covariance_auto", "pcg"): 128}
+    host = {k: getattr(g, k).numpy() for k in ("poses", "vmask", "e_ij",
+                                               "e_z", "e_info")}
+    want_u, best, _ = oracle.optimal(host, own.cpu().numpy(),
+                                     boundary.numpy(), np.ones(128, bool),
+                                     device=dev)
+    u = u.cpu().double().numpy()
+    np.testing.assert_allclose(u, want_u, rtol=1e-4)
+    k = int(np.flatnonzero(boundary.numpy() == int(star.gauge))[0])
+    assert want_u[k] / want_u.min() - 1.0 < 1e-4
+    wz, wom, wvalid = oracle.star(host, own.cpu().numpy(), boundary.numpy(),
+                                  np.ones(128, bool), int(star.gauge),
+                                  device=dev)
+    assert np.array_equal(star.valid.cpu().numpy(), wvalid)
+    z = star.z.cpu().double().numpy()[wvalid]
+    d = np.abs(z - wz[wvalid])
+    d[:, 2] = np.abs((z[:, 2] - wz[wvalid][:, 2] + np.pi) % (2 * np.pi)
+                     - np.pi)
+    assert d.max() <= 5e-4
+    om = G.unpack_info(star.info).cpu().double().numpy()[wvalid]
+    rel = (np.linalg.norm(om - wom[wvalid], axis=(-2, -1))
+           / np.linalg.norm(wom[wvalid], axis=(-2, -1)))
+    assert rel.max() <= 1e-4

@@ -184,7 +184,10 @@ def test_gauge_uncertainty_batched_banded():
     fixture (capacity 1024, robot 0's own edges, the PCG band under its
     chain order) with four candidate gauges, each candidate's uncertainty
     against the port's own batch-1 condense of it (rtol 1e-3: the same
-    float32 solves, batched)."""
+    float32 solves, batched). Every candidate is a vertex the own edges
+    touch, as every boundary vertex of a request is: one they do not touch
+    (slot 330) anchors nothing as the gauge, so its system is singular
+    but for the marginals' 1e-6 jitter and its float32 star is noise."""
     from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
     from cg_mrslam_tpu_torch.solver import gauss_newton as tgn
 
@@ -192,7 +195,7 @@ def test_gauge_uncertainty_batched_banded():
     g = TG.PoseGraph(**{f.name: getattr(gb, f.name)[0]
                         for f in dc.fields(gb)})
     own = TG.own_edge_mask(g, 0)
-    boundary = torch.tensor([40, 120, 200, 330], dtype=torch.int32)
+    boundary = torch.tensor([40, 120, 200, 322], dtype=torch.int32)
     valid = torch.ones(4, dtype=torch.bool)
     tgn.BAND_CALLS.clear()
     u = npy(TCG.gauge_uncertainty(g, boundary, valid, own, order))

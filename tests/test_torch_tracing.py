@@ -160,7 +160,7 @@ def test_dense_solve_reads_nothing_on_the_host():
 STOPS = [3, 9, 17, 40]
 
 
-def _planted(budget):
+def _planted(budget, graph=False):
     stops = torch.tensor(STOPS)
 
     def body(s):
@@ -170,7 +170,7 @@ def _planted(budget):
 
     return masked_loop(body, (torch.zeros((), dtype=torch.long),
                               torch.zeros(len(STOPS), dtype=torch.long)),
-                       budget, "planted")
+                       budget, "planted", graph=graph)
 
 
 @pytest.mark.parametrize("budget,iters,looks,active", [
@@ -187,3 +187,18 @@ def test_masked_loop_counters(budget, iters, looks, active):
             c["loop.planted.active"], c["loop.planted.problems"],
             c["host_read.planted"]) == (iters, looks, active,
                                         looks * len(STOPS), looks)
+
+
+@pytest.mark.parametrize("budget,iters", [(64, 48), (20, 20), (0, 0)])
+def test_masked_loop_graph_is_the_plain_loop_off_the_card(budget, iters):
+    """``graph=True`` on CPU tensors runs the loop as written: the same
+    exit, the same state, the same counters."""
+    with _profile():
+        want = _planted(budget)
+    plain = M.counts()
+    M.reset()
+    with _profile():
+        got = _planted(budget, graph=True)
+    assert int(got[0]) == int(want[0]) == iters
+    assert torch.equal(got[1], want[1])
+    assert M.counts() == plain
