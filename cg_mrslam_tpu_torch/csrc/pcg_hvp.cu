@@ -178,8 +178,8 @@ int launch(const int* e_ij, const T* Ji, const T* Jj, const T* omega,
 // Launch both passes on `stream` (a cudaStream_t passed as void*). Shapes:
 // e_ij [B, E, 2] i32 at element strides (sb, se, sk) (the batch builders
 // and the slot permutation leave it strided); x [B, C, N, 3] at element
-// strides (xb, xc, xn, xk) (the preconditioner's solve leaves the CG
-// direction strided); the rest contiguous: Ji, Jj, omega [B, E, 3, 3];
+// strides (xb, xc, xn, xk) (a caller's column view may be strided); the
+// rest contiguous: Ji, Jj, omega [B, E, 3, 3];
 // entries [2 * B * E] i32; offsets [B * N + 1] i32; is_free [B, N] u8; y
 // [B, C, N, 3]; contrib [2 * B * E, C, 3] (scratch). B * E * C, B * C * N and 2 * B * E below 2^30 (the wrapper
 // checks). Each returns the cudaError_t of the launches (0 on success).

@@ -62,7 +62,7 @@ class PcgHvpKernel:
         b, c, n, e = check_inputs(e_ij, Ji, Jj, omega, entries, offsets,
                                   free, x)
         # e_ij and x may be strided (the batch builders and the slot
-        # permutation leave e_ij so, the preconditioner's solve the CG
+        # permutation leave e_ij so; a caller may hand a strided
         # direction): the kernel reads both at their strides, with no copy
         sb = e_ij.stride(0) if e_ij.dim() == 3 else 0
         se, sk = e_ij.stride(-2), e_ij.stride(-1)

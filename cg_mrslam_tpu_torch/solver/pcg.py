@@ -8,7 +8,8 @@ the reference scatter-adds; on the card a hand-written kernel pair,
 ``ops/pcg_hvp.py``, on the CPU its plain version) — and CG
 is preconditioned by the damped (chain-tridiagonal +
 full-diagonal) matrix factorized with the chain solver's cyclic
-reduction. The fallback of the chain band for graphs that are not
+reduction (its solve on the card one kernel, ``ops/cr_apply.py``). The
+fallback of the chain band for graphs that are not
 ``chainable``.
 
 The reference's ``lax.scan``s of fixed length freeze their state once a
@@ -34,8 +35,8 @@ from cg_mrslam_tpu_torch.core.graph import (PoseGraph, degrees,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
 from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
-from cg_mrslam_tpu_torch.solver.chain import (GROUP, _cr_apply, _cr_factor,
-                                              _rows_of)
+from cg_mrslam_tpu_torch.solver.chain import (GROUP, _cr_apply_cols,
+                                              _cr_factor, _rows_of)
 from cg_mrslam_tpu_torch.solver.fixed_sum import (Segments, edge_table,
                                                   ends_sum)
 from cg_mrslam_tpu_torch.solver.spd import masked_loop, per
@@ -102,13 +103,14 @@ def _freeb(free: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return fb
 
 
-def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
+def _tridiag_factor(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
     """Damped (chain-tridiagonal + full-diagonal) preconditioner,
 
         T = (Hessian diagonal blocks) + (adjacent-slot chain off-diagonal
             blocks) + λI,     λ = damp·mean-diag,
 
-    factorized by cyclic reduction. Returns ``precond(r [..., N, 3])``."""
+    factorized by cyclic reduction (the compact factor of
+    ``ops/cr_apply.py``)."""
     nb = g.poses.dim() - 2
     n = g.poses.shape[-2]
     dt = g.poses.dtype
@@ -132,15 +134,17 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
                  nb)
     L[..., n - 1, :, :] = 0.0
 
-    fact = _cr_factor(D, L, group=GROUP)
+    return _cr_factor(D, L, group=GROUP)
+
+
+def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
+    """:func:`_tridiag_factor`'s preconditioner as ``precond(r [..., N,
+    3])``: the solve of every column of ``r``, frozen vertices' rows zero
+    (on the card one kernel launch)."""
+    fact = _tridiag_factor(g, f, damp)
 
     def precond(r: torch.Tensor) -> torch.Tensor:
-        freeb = _freeb(free, r)
-        # the columns last: [*B, N, 3, C]
-        cols = (r * freeb).reshape(r.shape[:nb] + (-1, n, 3)).movedim(nb,
-                                                                      -1)
-        x = _cr_apply(fact, cols).movedim(-1, nb).reshape(r.shape)
-        return x * freeb
+        return _cr_apply_cols(fact, r, f.free)
 
     return precond
 

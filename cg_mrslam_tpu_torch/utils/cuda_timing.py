@@ -121,6 +121,35 @@ def hvp_bound(b: int, c: int, n: int, e: int, listed: int,
                                  else "operations")
 
 
+def cr_apply_work(b: int, c: int, n: int, m: int, itemsize: int = 4):
+    """``(bytes, operations)`` of one solve of the cyclic-reduction
+    preconditioner over ``b`` graphs, ``c`` columns and ``n`` poses, the
+    factor over ``m`` super-blocks of 48 rows: the compact factor read
+    once (``ops/cr_apply.layout``: per odd super-block ``D⁻¹``, 3×48 rows
+    of ``A`` and ``B``, two 3×3 corners; the root inverse), the bool
+    ``free``, ``r`` read once and ``z`` written once; per column 2 × 48 × 48
+    operations a ``D⁻¹`` and the root, 2 × 6 × 48 a pair's forward rows, 2 ×
+    18 its corners."""
+    from cg_mrslam_tpu_torch.ops.cr_apply import layout
+
+    s = itemsize
+    n_bytes = (b * layout(m, 16).size * s + b * n
+               + 2 * b * c * n * 3 * s)
+    n_ops = 2 * b * c * ((m - 1) * (48 * 48 + 6 * 48 + 18) + 48 * 48)
+    return n_bytes, n_ops
+
+
+def cr_apply_bound(b: int, c: int, n: int, m: int, itemsize: int = 4):
+    """``(bound_ms, bound_by)`` of one solve: :func:`cr_apply_work`'s
+    bytes over the HBM rate against its operations over the float32
+    rate."""
+    n_bytes, n_ops = cr_apply_work(b, c, n, m, itemsize)
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
 def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()

@@ -183,7 +183,15 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    row's ``Σ|Jᵀ||Ω||J||x|``), timed as phase 4 times K1, beside the plain
    version and the function's bytes bound (``tools/bench_pcg_hvp.py``'s
    record), with its build time and ``ptxas -v`` report; added to the
-   ``kernels`` record, with the pair's launches on the main path.
+   ``kernels`` record, with the pair's launches on the main path; (i) the
+   PCG preconditioner's cyclic-reduction kernel (``csrc/cr_apply.cu``) at
+   ``fleet_pcg``'s shapes (2048 graphs, one column) and the star's (128
+   graphs, 384 columns), on a 65,536-pose graph (its buffer in device
+   memory) and in float64: against its plain version (the error against
+   the same factor's float64 solve at most twice the plain version's and
+   1e-6 of the scale; in float64 within 1e-9), timed beside the plain
+   version and its bytes-or-operations bound (``tools/bench_cr_apply.py``'s
+   record); added to the ``kernels`` record with its main-path launches.
 
 The pair's main-path launches: in phase 6, in phase 12's merged solve on
 the card and in phase 13 (c), (d) and (e)'s 128-candidate star on the
@@ -193,6 +201,11 @@ band's loops ran there (``loop.pcg.cg.iters`` + ``loop.pcg.marginal.iters``,
 counted with the solver's loop counters on and no profiler); each stretch
 checks that the two are equal and not 0, and the ``kernels`` records of
 (h) carry the counts (``launches_main_path``, ``launches_by_stretch``).
+The same stretches count the cyclic-reduction kernel's launches against
+the preconditioner solves their CG loops make on the card (one per
+iteration, one before each PCG loop, two before each chain-band loop, one
+per chain preconditioner's ``Hc⁻¹U``); each checks the two equal, and (i)'s
+records carry the counts.
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -331,27 +344,64 @@ def hvp_counted(name: str):
     the stretch without a profiler); checks that every iteration launched
     the pair once, and stores both under ``HVP_STRETCHES[name]``. The
     band's loops run as written over the stretch: a replayed graph
-    launches the pair without a call that the wrapper counts."""
+    launches the pair without a call that the wrapper counts.
+
+    The preconditioner's cyclic-reduction kernel is counted beside it
+    (``cr_launches``) against the solves the CG loops on the card make
+    (``cr_applies``): one per iteration, and before each loop one in the
+    PCG band and two in the chain band (its warm start and first
+    residual), and one per chain preconditioner built with loop columns
+    (its ``Hc⁻¹U``); the stretch checks that the two are equal."""
+    from cg_mrslam_tpu_torch.ops.cr_apply import CR_APPLY
     from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
+    from cg_mrslam_tpu_torch.solver import chain as CH
     from cg_mrslam_tpu_torch.solver import pcg as P
     from cg_mrslam_tpu_torch.utils import metrics as M
 
     counted = collections.Counter()
-    count, loop = M.count, P.masked_loop
+    applies = collections.Counter()
+    count, loop, ch_loop, setup = (M.count, P.masked_loop, CH.masked_loop,
+                                   CH._precond_setup)
+
+    def counting(fn, before_loop):
+        def run(body, state, budget, loop_name, graph=False):
+            k0 = counted[f"loop.{loop_name}.iters"]
+            out = fn(body, state, budget, loop_name)
+            if state[1].is_cuda:
+                applies[loop_name] += (counted[f"loop.{loop_name}.iters"]
+                                       - k0 + before_loop)
+            return out
+        return run
+
+    def counted_setup(td, loops):
+        if td.D.is_cuda and loops[-1].shape[-1]:
+            applies["chain.setup"] += 1
+        return setup(td, loops)
+
     M.count = lambda key, n=1: counted.update({key: n})
-    P.masked_loop = lambda *a, graph=False, **k: loop(*a, **k)
+    P.masked_loop = counting(loop, 1)
+    CH.masked_loop = counting(ch_loop, 2)
+    CH._precond_setup = counted_setup
     PCG_HVP.launches = 0
+    CR_APPLY.launches = 0
     try:
         yield
     finally:
-        M.count, P.masked_loop = count, loop
+        M.count, P.masked_loop, CH.masked_loop, CH._precond_setup = (
+            count, loop, ch_loop, setup)
     iters = counted["loop.pcg.cg.iters"] + counted["loop.pcg.marginal.iters"]
-    HVP_STRETCHES[name] = {"launches": PCG_HVP.launches, "cg_iters": iters}
+    cr = sum(applies.values())
+    HVP_STRETCHES[name] = {"launches": PCG_HVP.launches, "cg_iters": iters,
+                           "cr_launches": CR_APPLY.launches,
+                           "cr_applies": cr}
     log(f"pcg_hvp: {name}: {PCG_HVP.launches} launches, {iters} PCG "
         f"iterations ({counted['loop.pcg.cg.iters']} solve, "
-        f"{counted['loop.pcg.marginal.iters']} marginal)")
+        f"{counted['loop.pcg.marginal.iters']} marginal); cr_apply: "
+        f"{CR_APPLY.launches} launches, {cr} solves {dict(applies)}")
     assert PCG_HVP.launches == iters > 0, (name, PCG_HVP.launches,
                                            dict(counted))
+    assert CR_APPLY.launches == cr > iters, (name, CR_APPLY.launches,
+                                             dict(applies))
 
 
 def plain_of(args, ty, tx):
@@ -2593,10 +2643,46 @@ def bench_hvp(out: list) -> list:
     return recs
 
 
+def bench_cr_apply(out: list) -> list:
+    """(i) The PCG preconditioner's cyclic-reduction kernel at the
+    benchmark's shapes (``fleet_pcg``'s and the star's), on a
+    65,536-pose graph and in float64, against its plain version; returns
+    its kernel records."""
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from cg_mrslam_tpu_torch.ops import cr_apply as CA
+    from tools.bench_cr_apply import cr_edge_records, cr_records
+
+    t0 = time.perf_counter()
+    CA.CR_APPLY._entry(torch.float32)
+    log(f"bench cr_apply: cr_apply.cu built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s; ptxas -v:\n"
+        f"{K.ptxas_report(CA.SRC)}")
+    recs = cr_records(2048, 128)
+    for rec in recs:
+        rec.update(route="cuda", source="cg_mrslam_tpu_torch/csrc/cr_apply.cu",
+                   replaces="none (the JAX package leaves the solve to XLA)",
+                   library_ms=None)
+        log(f"bench cr_apply: {rec['name']} {rec['shape']}: ms "
+            f"{rec['ms']:.4f}, device_ms {rec['device_ms']:.5f}, host_us "
+            f"{rec['host_us']:.1f}, bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']} ({100 * rec['bound_share']:.1f}% of it), "
+            f"plain {rec['plain_ms']:.3f} ms, "
+            f"{rec['device_ops_per_call']:.0f} device ops a call, error "
+            f"{rec['err']:.3g} (plain {rec['err_plain']:.3g}, scale "
+            f"{rec['scale']:.3g}), plan {rec['plan']}")
+    for rec in cr_edge_records():
+        log(f"bench cr_apply: {rec['name']} {rec['shape']}: error "
+            f"{rec['err']:.3g} (plain {rec['err_plain']:.3g}, scale "
+            f"{rec['scale']:.3g}), plan {rec['plan']}")
+        out.append(rec)
+    out.extend(recs)
+    return recs
+
+
 def phase_bench(matches) -> tuple:
     """Phase 13 (see the module docstring). Writes every workload's record
     to ``chiprun_out/phase13/bench.json``; returns K1's launches by shape
-    in (g) and (h)'s kernel records."""
+    in (g), and (h) and (i)'s kernel records."""
     PHASE13_DIR.mkdir(parents=True, exist_ok=True)
     out, by_shape, hvp = [], {}, []
     for name, fn in (("dense", lambda: bench_dense(out)),
@@ -2606,7 +2692,8 @@ def phase_bench(matches) -> tuple:
                      ("gauge", lambda: bench_gauge(out, matches)),
                      ("sol", lambda: bench_sol(out)),
                      ("latency", lambda: by_shape.update(bench_latency(out))),
-                     ("hvp", lambda: hvp.extend(bench_hvp(out)))):
+                     ("hvp", lambda: hvp.extend(bench_hvp(out))),
+                     ("cr_apply", lambda: hvp.extend(bench_cr_apply(out)))):
         t0 = time.perf_counter()
         fn()
         torch.cuda.empty_cache()
@@ -2887,9 +2974,10 @@ def main() -> int:
         if not rec.get("pair") and "launches_main_path" not in rec:
             rec["launches_srslam_1024"] = k1_1024.get(tuple(rec["shape"]), 0)
     assert len(HVP_STRETCHES) == 6, sorted(HVP_STRETCHES)
-    for rec in hvp_records:       # the pair's, over every shape it ran at
-        rec.update(launches_main_path=sum(
-            v["launches"] for v in HVP_STRETCHES.values()),
+    for rec in hvp_records:       # the pair's and the solve's, over every
+        key = "cr_launches" if "cr_apply" in rec["name"] else "launches"
+        rec.update(launches_main_path=sum(      # shape each ran at
+            v[key] for v in HVP_STRETCHES.values()),
             launches_by_stretch=dict(HVP_STRETCHES))
     records += hvp_records
     log(f"bench: phase 13 in {time.perf_counter() - t0:.1f} s")

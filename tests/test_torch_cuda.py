@@ -18,9 +18,13 @@ a batched PCG solve's host syncs, each one a host read the solver counts
 but one named copy, and its spans adding no kernel; the PCG band's
 Hessian-vector kernel pair against its plain version at the benchmark's
 shapes and with 3Q marginal columns, bit-equal per graph under a permuted
-batch, and launched once per CG iteration; the benchmark cell's
-optimal-gauge star (128 candidates on the merged fixture) against the
-plain float64 oracle run on the card.
+batch, and launched once per CG iteration; the preconditioner's
+cyclic-reduction kernel (``csrc/cr_apply.cu``) against its plain version
+at the benchmark's shapes, the star's, a chain band's ``Hc⁻¹U`` and in
+float64, bit-equal on repeat and per graph under a permuted batch, and
+launched once per solve; the benchmark cell's optimal-gauge star (128
+candidates on the merged fixture) against the plain float64 oracle run on
+the card.
 Every test carries the ``cuda`` marker and skips where there is no NVIDIA
 GPU.
 
@@ -390,22 +394,28 @@ def test_graphed_pcg_settle_and_marginals_match_the_plain_loops(dev):
     runs them) give the poses and covariances of the plain loops, bit for
     bit: the same kernels in the same order. 44 iterations: five replayed
     stretches after the first and a tail of four; and again at a budget
-    the settle's tolerance ends."""
+    the settle's tolerance ends. The preconditioner's kernel runs in
+    both."""
+    from cg_mrslam_tpu_torch.ops.cr_apply import CR_APPLY
     from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
     from cg_mrslam_tpu_torch.solver import pcg as P
 
     g, order, _ = build_merged_batch(8, device=dev)
+    before = CR_APPLY.launches
     for cg_iters in (44, 400):
         want = P.optimize_pcg(g, 1, order=order, cg_iters=cg_iters).poses
         got = P.optimize_pcg(g, 1, order=order, cg_iters=cg_iters,
                              cg_graph=True).poses
         assert torch.equal(got, want)
+    settle = CR_APPLY.launches
+    assert settle > before
     g = dataclasses.replace(g, poses=want)
     q = torch.arange(100, 300, 25, device=dev)
     want = P.marginal_covariance_pcg(g, q, cg_iters=44, order=order)
     got = P.marginal_covariance_pcg(g, q, cg_iters=44, order=order,
                                     cg_graph=True)
     assert torch.equal(got, want)
+    assert CR_APPLY.launches > settle
 
 
 def _merged_graph(n_own, n_loops, cap_v=300, cap_e=600, seed=0):
@@ -757,6 +767,142 @@ def test_pcg_hvp_kernel_launches_once_per_cg_iteration(dev, monkeypatch):
     assert c["loop.pcg.cg.iters"] > 0 and c["loop.pcg.marginal.iters"] > 0
     assert PCG_HVP.launches - before == (c["loop.pcg.cg.iters"]
                                          + c["loop.pcg.marginal.iters"]), c
+
+
+# The preconditioner's cyclic-reduction kernel (csrc/cr_apply.cu) against
+# its plain version (ops/cr_apply.cr_apply_plain). The two sum in other
+# orders and the card contracts products into FMAs; a solve amplifies
+# rounding by T's condition, so each is held to the same factor's solve in
+# float64: the kernel's error at most twice the plain version's (and 1e-6
+# of the answer's scale). In float64 the two agree within 1e-9 of it.
+
+
+def _cr_close(fact, r, free=None):
+    from cg_mrslam_tpu_torch.ops import cr_apply as CA
+
+    before = CA.CR_APPLY.launches
+    got = CA.CR_APPLY(fact, r, free)
+    assert CA.CR_APPLY.launches == before + 1
+    want = CA.cr_apply_plain(fact, r, free)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    if r.dtype == torch.float64:
+        assert float((got - want).abs().max()) <= 1e-9 * scale
+        return got
+    f64 = dataclasses.replace(fact, packed=fact.packed.double())
+    exact = CA.cr_apply_plain(f64, r.double(), free)
+    err_k = float((got.double() - exact).abs().max())
+    err_p = float((want.double() - exact).abs().max())
+    assert err_k <= 2 * err_p + 1e-6 * scale, (err_k, err_p, scale)
+    return got
+
+
+def _pcg_factor(g):
+    from cg_mrslam_tpu_torch.solver import pcg as P
+
+    f = P._factorize(g, None)
+    return P._tridiag_factor(g, f), f.free
+
+
+def _first_k(g, k):
+    return dataclasses.replace(g, **{f.name: getattr(g, f.name)[:k]
+                                     for f in dataclasses.fields(g)})
+
+
+def test_cr_apply_kernel_matches_plain(dev):
+    """At ``fleet_pcg``'s shapes (2048 merged graphs under the chain order,
+    one column, the frozen vertices masked), at the star's (128 graphs,
+    384 columns), at a batch-1 chain band's ``Hc⁻¹U`` (its 3M columns
+    last), on a graph too long for shared memory (65,536 poses), and in
+    float64."""
+    from cg_mrslam_tpu_torch.core.graph import permute_vertices
+    from cg_mrslam_tpu_torch.ops import cr_apply as CA
+    from cg_mrslam_tpu_torch.sim.graphs import (build_hospital_batch,
+                                                build_merged_batch)
+    from cg_mrslam_tpu_torch.solver import chain as CH
+
+    gen = torch.Generator(dev).manual_seed(6)
+    g, order, _ = build_merged_batch(2048, device=dev)
+    g = permute_vertices(g, order)
+    fact, free = _pcg_factor(g)
+    assert not bool(free.all())
+    r = torch.randn((2048, 1) + g.poses.shape[1:], device=dev, generator=gen)
+    _cr_close(fact, r, free)
+    star = _first_k(g, 128)
+    del g, fact
+    fact, free = _pcg_factor(star)
+    r = torch.randn((128, 384) + star.poses.shape[1:], device=dev,
+                    generator=gen)
+    _cr_close(fact, r, free)
+    del r
+    one = _first(build_hospital_batch(1, n=1024, closures=48, device=dev))
+    td, _, loops, _ = CH._assemble(one, None, 64)
+    fact1 = CH._cr_factor(td.D, td.L)
+    u = loops[-1]                                            # [N, 3, 3M]
+    before = CA.CR_APPLY.launches
+    got = CH._cr_apply(fact1, u)
+    assert CA.CR_APPLY.launches == before + 1 and got.shape == u.shape
+    want = _cr_close(fact1, u.movedim(-1, -3)[None])
+    assert torch.equal(got, want[0].movedim(-3, -1))
+    ring = _first(build_hospital_batch(1, n=65536, closures=16, device=dev))
+    fact, free = _pcg_factor(ring)
+    assert CA.buffer_elems(fact.m, 1) * 4 > 232448          # device memory
+    _cr_close(fact, torch.randn((1, 1) + ring.poses.shape, device=dev,
+                                generator=gen), free[None])
+    g64 = _first_k(star, 4)
+    g64 = dataclasses.replace(g64, **{k: getattr(g64, k).double()
+                                      for k in ("poses", "e_z", "e_info")})
+    fact, free = _pcg_factor(g64)
+    _cr_close(fact, torch.randn((4, 6) + g64.poses.shape[1:], device=dev,
+                                generator=gen, dtype=torch.float64), free)
+
+
+def test_cr_apply_kernel_repeats_and_is_per_graph(dev):
+    """Bit-equal on repeat, at one column and at many; a graph's result
+    does not depend on its place in the batch or its batch-mates."""
+    from cg_mrslam_tpu_torch.core.graph import permute_vertices
+    from cg_mrslam_tpu_torch.ops import cr_apply as CA
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+
+    g, order, _ = build_merged_batch(16, device=dev)
+    g = permute_vertices(g, order)
+    fact, free = _pcg_factor(g)
+    gen = torch.Generator(dev).manual_seed(7)
+    for cols in (1, 24):
+        r = torch.randn((16, cols) + g.poses.shape[1:], device=dev,
+                        generator=gen)
+        _repeats_identical(lambda: CA.CR_APPLY(fact, r, free))
+        perm = torch.randperm(16, generator=torch.Generator().manual_seed(
+            cols)).to(dev)
+        fp = dataclasses.replace(fact, packed=fact.packed[perm].contiguous())
+        assert torch.equal(CA.CR_APPLY(fp, r[perm], free[perm].contiguous()),
+                           CA.CR_APPLY(fact, r, free)[perm])
+
+
+def test_cr_apply_kernel_launches_once_per_solve(dev, monkeypatch):
+    """A batched PCG solve and a batched marginal solve launch the kernel
+    once per preconditioner solve: once per CG iteration they run
+    (``loop.pcg.*.iters``) and once before each CG loop (one a GN
+    iteration, one a marginal solve)."""
+    from cg_mrslam_tpu_torch.ops.cr_apply import CR_APPLY
+    from cg_mrslam_tpu_torch.sim.graphs import build_merged_batch
+    from cg_mrslam_tpu_torch.solver import pcg as P
+    from cg_mrslam_tpu_torch.utils import metrics as M
+
+    g, order, _ = build_merged_batch(8, device=dev)
+    monkeypatch.setattr(M, "_profiling", lambda: True)
+    M.reset()
+    before = CR_APPLY.launches
+    out = P.optimize_pcg(g, 3, order=order, cg_iters=24)
+    P.marginal_covariance_pcg(out, torch.arange(100, 200, 25, device=dev),
+                              cg_iters=40, order=order)
+    c = M.counts()
+    M.reset()
+    assert c["gn.iters.pcg"] == 3 and c["loop.pcg.marginal.iters"] > 0
+    assert CR_APPLY.launches - before == (
+        c["loop.pcg.cg.iters"] + c["gn.iters.pcg"]
+        + c["loop.pcg.marginal.iters"] + 1), c
 
 
 def test_occupancy_on_the_card_matches_cpu(dev, live_graph):

@@ -19,8 +19,8 @@ that the segment table carries, and a rehearsal of the CUDA kernel pair
   shape, layout) on real factors and CG directions, so a card run cannot
   fail on them, and the wrapper refuses CPU tensors and malformed inputs.
   ``e_ij`` and ``x`` reach the kernel strided (the batch builders and the
-  slot permutation leave ``e_ij`` so, the preconditioner's solve the CG
-  direction), and the rehearsal reads both at their strides.
+  slot permutation leave ``e_ij`` so, and a direction may be a view of a
+  wider state), and the rehearsal reads both at their strides.
 
 This file imports neither JAX nor ``cg_mrslam_tpu``.
 """
@@ -201,9 +201,12 @@ def test_rehearsal_matches_plain(case, dtype):
     assert not bool(f.free.all()) and bool(f.free.any())
     lead = g.poses.shape[:-2]
     if cols == "strided":
-        # the layout the preconditioner's solve gives the CG direction
+        # a CG direction held at strides of its own: every other entry of a
+        # wider state
         cols = ()
-        x = P._tridiag_precond(g, f)(f.b)
+        wide = torch.zeros(lead + g.poses.shape[-2:-1] + (6,), dtype=dtype)
+        wide[..., ::2] = P._tridiag_precond(g, f)(f.b)
+        x = wide[..., ::2]
         assert not x.is_contiguous()
     else:
         x = torch.as_tensor(np.random.default_rng(2).normal(

@@ -42,9 +42,9 @@ from cg_mrslam_tpu_torch.solver import pcg as PCG  # noqa: E402
 
 # (module whose global is looked up at the call, name): pcg.py and chain.py
 # import the cyclic reduction and the SPD inverse by name
-PIECES = [(CH, "_cr_factor"), (CH, "_cr_apply"), (CH, "spd_inverse"),
+PIECES = [(CH, "_cr_factor"), (CH, "_cr_apply_cols"), (CH, "spd_inverse"),
           (CH, "_h_matvec"), (CH, "_precond"), (PCG, "_cr_factor"),
-          (PCG, "_cr_apply"), (PCG, "_hvp")]
+          (PCG, "_cr_apply_cols"), (PCG, "_hvp")]
 
 
 class Count(TorchDispatchMode):
