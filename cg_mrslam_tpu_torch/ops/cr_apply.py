@@ -1,8 +1,8 @@
 """The chain-tridiagonal preconditioner's cyclic-reduction solve as one
 hand-written CUDA kernel (``csrc/cr_apply.cu``) over a compact factor.
 
-``solver/chain.py:_cr_factor`` factors the block-tridiagonal T over
-super-blocks of ``3·group`` rows (48 at the solver's ``GROUP`` 16): each
+``solver/cyclic_reduction.py:cr_factor`` factors the block-tridiagonal T
+over super-blocks of ``3·group`` rows (48 at the solver's ``GROUP`` 16): each
 level eliminates the odd super-blocks and keeps, per odd one, ``D⁻¹``, the
 couplings ``Le``, ``Lo`` and the products ``A``, ``B``. Of those, only
 ``D⁻¹`` and the root inverse are dense: a coupling touches only the

@@ -4,10 +4,9 @@ Port of ``cg_mrslam_tpu/solver/chain.py``. A SLAM pose graph is an
 odometry chain (edges k→k+1) plus a few loop closures, so its GN Hessian
 is block-tridiagonal plus a low-rank term ``H = H_chain + Aᵀ Ω_L A``:
 
-* the λ-damped chain factors by block cyclic reduction over
-  ``3·GROUP``-square super-blocks (log₂ levels of batched dense-block
-  matmuls), kept compact and solved on the card by one kernel
-  (``ops/cr_apply.py``);
+* the λ-damped chain factors by block cyclic reduction
+  (``solver/cyclic_reduction.py``, shared with the PCG band: compact, and
+  solved on the card by one kernel);
 * the loop edges enter through the Woodbury identity with one
   ``[3M, 3M]`` SPD solve (M = selected loop edges);
 * that damped chain+Woodbury inverse preconditions CG on the TRUE
@@ -45,7 +44,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import math
 from typing import NamedTuple
 
 import torch
@@ -55,15 +53,15 @@ from cg_mrslam_tpu_torch.core.graph import (PoseGraph, degrees,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import chi2, linearize
 from cg_mrslam_tpu_torch.ops import cr_apply as CA
+from cg_mrslam_tpu_torch.solver.cyclic_reduction import (cr_apply,
+                                                         cr_apply_cols,
+                                                         cr_factor, inv3)
 from cg_mrslam_tpu_torch.solver.fixed_sum import edge_table, ends_sum
-from cg_mrslam_tpu_torch.solver.spd import (_spd_inverse_rec, masked_loop,
-                                            per, spd_inverse)
+from cg_mrslam_tpu_torch.solver.gather import (marginal_blocks, pick,
+                                               rows_of, unit_columns)
+from cg_mrslam_tpu_torch.solver.spd import masked_loop, per, spd_inverse
 from cg_mrslam_tpu_torch.utils import se2
 from cg_mrslam_tpu_torch.utils.metrics import count, span
-
-# Poses per cyclic-reduction super-block (the reference's constant: it
-# fixes the factorization's block structure, so the results).
-GROUP = 16
 
 # Graphs whose frozen-preconditioner GN iteration :func:`_freeze_diverged`
 # sent back to be redone with a fresh preconditioner. A plain counter for
@@ -84,23 +82,6 @@ def _bspec(spec: str) -> str:
 
 def _es(spec: str, *ops, batched: bool = False) -> torch.Tensor:
     return torch.einsum(_bspec(spec) if batched else spec, *ops)
-
-
-def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` along axis 0, or along axis 1 per graph of a batch
-    (``idx [B, M]``)."""
-    if idx.dim() == 1:
-        return x[idx]
-    return x[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
-
-
-def _rows_of(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[..., idx, :]`` per graph: ``x [B, *C, N, 3]``, ``idx [B, M]``
-    → ``[B, *C, M, 3]``."""
-    mid = x.shape[1:-2]
-    ix = idx.reshape((idx.shape[0],) + (1,) * len(mid) + (idx.shape[1], 1))
-    return torch.gather(x, -2, ix.expand(x.shape[:-2] + (idx.shape[1],
-                                                          x.shape[-1])))
 
 
 def chain_masks(g: PoseGraph, edge_mask: torch.Tensor | None = None):
@@ -242,9 +223,9 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
     lm3 = lmask.to(dt)[..., None, None]
     li = torch.where(lmask, vi.gather(-1, sel), torch.zeros_like(sel))
     lj = torch.where(lmask, vj.gather(-1, sel), torch.zeros_like(sel))
-    lJi = _pick(Jif, sel) * lm3
-    lJj = _pick(Jjf, sel) * lm3
-    lom = torch.where(lmask[..., None, None], _pick(omega, sel), eye)
+    lJi = pick(Jif, sel) * lm3
+    lJj = pick(Jjf, sel) * lm3
+    lom = torch.where(lmask[..., None, None], pick(omega, sel), eye)
     # U[3i.., 3m..] = Jᵢ_mᵀ → [N, 3, 3M] (one-hot products: a fixed order)
     m = li.shape[-1]
     Oi = torch.nn.functional.one_hot(li, n).to(dt)         # [M,N]
@@ -254,173 +235,6 @@ def _assemble(g: PoseGraph, edge_mask, loop_cap: int, damp: float = 1e-3,
         g.poses.shape[:-2] + (n, 3, 3 * m))
     return (_Tridiag(D=D, Dt=D_true, L=L, free=free), b,
             (li, lj, lJi, lJj, lom, U), dropped)
-
-
-def _inv3(a: torch.Tensor) -> torch.Tensor:
-    """Batched closed-form 3×3 inverse (adjugate / det)."""
-    a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
-    a10, a11, a12 = a[..., 1, 0], a[..., 1, 1], a[..., 1, 2]
-    a20, a21, a22 = a[..., 2, 0], a[..., 2, 1], a[..., 2, 2]
-    c00 = a11 * a22 - a12 * a21
-    c01 = a12 * a20 - a10 * a22
-    c02 = a10 * a21 - a11 * a20
-    det = a00 * c00 + a01 * c01 + a02 * c02
-    c10 = a02 * a21 - a01 * a22
-    c11 = a00 * a22 - a02 * a20
-    c12 = a01 * a20 - a00 * a21
-    c20 = a01 * a12 - a02 * a11
-    c21 = a02 * a10 - a00 * a12
-    c22 = a00 * a11 - a01 * a10
-    adj = torch.stack([
-        torch.stack([c00, c10, c20], -1),
-        torch.stack([c01, c11, c21], -1),
-        torch.stack([c02, c12, c22], -1),
-    ], -2)
-    return adj / det[..., None, None]
-
-
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
-
-
-def _inv_block(a: torch.Tensor) -> torch.Tensor:
-    """Closed form for 3×3 blocks, the block-Schur recursion for
-    super-blocks."""
-    if a.shape[-1] == 3:
-        return _inv3(a)
-    return _spd_inverse_rec(a)
-
-
-def _to_super(D: torch.Tensor, L: torch.Tensor, group: int):
-    """Regroup a 3×3 block-tridiagonal chain (``D [n, ..., 3, 3]``, the
-    batch's axes after the block axis) into dense ``3·group``-square
-    super-blocks (tail padded with identity)."""
-    n = D.shape[0]
-    ns = -(-n // group)
-    pad = ns * group - n
-    lead = D.shape[1:-2]
-    dev = D.device
-    if pad:
-        eye = torch.eye(3, dtype=D.dtype, device=dev).expand(
-            (pad,) + D.shape[1:])
-        D = torch.cat([D, eye], dim=0)
-        L = torch.cat([L, torch.zeros((pad,) + L.shape[1:], dtype=L.dtype,
-                                      device=dev)], dim=0)
-        L[n - 1] = 0.0
-    Dr = D.reshape((ns, group) + D.shape[1:])
-    Lr = L.reshape((ns, group) + L.shape[1:])
-    b = 3 * group
-    Ds = torch.zeros((ns,) + lead + (b, b), dtype=D.dtype, device=dev)
-    for k in range(group):
-        Ds[..., 3 * k:3 * k + 3, 3 * k:3 * k + 3] = Dr[:, k]
-    for k in range(group - 1):
-        blk = Lr[:, k]
-        Ds[..., 3 * (k + 1):3 * (k + 1) + 3, 3 * k:3 * k + 3] = blk
-        Ds[..., 3 * k:3 * k + 3, 3 * (k + 1):3 * (k + 1) + 3] = \
-            blk.transpose(-1, -2)
-    # L_s[t] = T_s[t+1, t]: only the (first pose of t+1) × (last pose of
-    # t) corner is nonzero
-    Ls = torch.zeros((ns,) + lead + (b, b), dtype=D.dtype, device=dev)
-    Ls[..., 0:3, b - 3:b] = Lr[:, group - 1]
-    Ls[ns - 1] = 0.0
-    return Ds, Ls, ns, pad
-
-
-def _cr_factor(D: torch.Tensor, L: torch.Tensor, group: int = GROUP):
-    """Cyclic-reduction factorization of the SPD block-tridiagonal T
-    (``D [n,3,3]``, ``L[k] = T[k+1,k]``; ``[B, n, 3, 3]`` for a batch,
-    factored over ``[blocks, B, ...]``) over super-blocks: each level
-    eliminates the odd-indexed blocks,
-
-        D'[t] = D[2t] − L[2t−1] D⁻¹[2t−1] Lᵀ[2t−1] − Lᵀ[2t] D⁻¹[2t+1] L[2t]
-        L'[t] = −L[2t+1] D⁻¹[2t+1] L[2t]
-
-    and keeps of each level only what the solve reads (``D⁻¹`` and the
-    nonzero rows and corners of its couplings, :mod:`ops.cr_apply`):
-    returns a :class:`ops.cr_apply.CrFactor`."""
-    batched = D.dim() == 4
-    if batched:
-        D, L = D.movedim(1, 0), L.movedim(1, 0)
-    n3 = D.shape[0]
-    D, L, ns, _ = _to_super(D, L, group)
-    bb = D.shape[-1]
-    dev = D.device
-    n = ns
-    m = _next_pow2(n)
-    if m > n:
-        eye = torch.eye(bb, dtype=D.dtype, device=dev).expand(
-            (m - n,) + D.shape[1:])
-        D = torch.cat([D, eye], dim=0)
-        L = torch.cat([L, torch.zeros((m - n,) + L.shape[1:], dtype=L.dtype,
-                                      device=dev)], dim=0)
-        L[n - 1] = 0.0   # padding must not couple
-    eye1 = torch.eye(bb, dtype=D.dtype, device=dev).expand(
-        (1,) + D.shape[1:])
-    zero1 = torch.zeros((1,) + L.shape[1:], dtype=L.dtype, device=dev)
-
-    b = D.shape[1] if batched else 1
-    fact = None
-    level = 0
-    while D.shape[0] > 1:
-        Do = D[1::2]
-        Le = L[0::2]                          # L[2t]  : T[2t+1, 2t]
-        Lo = L[1::2]                          # L[2t+1]: T[2t+2, 2t+1]
-        Doi = _inv_block(Do)
-        Lprev = torch.cat([zero1, Lo[:-1]], dim=0)          # L[2t−1]
-        Doi_prev = torch.cat([eye1, Doi[:-1]], dim=0)
-        A = Lprev @ Doi_prev                  # L[2t−1] D⁻¹[2t−1]
-        B = Le.transpose(-1, -2) @ Doi        # Lᵀ[2t] D⁻¹[2t+1]
-        Dn = D[0::2] - A @ Lprev.transpose(-1, -2) - B @ Le
-        # a large batch peaks here: the compact factor is made after the
-        # first level's products, and each level's dense blocks are freed
-        # once kept
-        if fact is None:
-            fact = CA.new_factor(b, m, n3, group, batched, Dn)
-        CA.pack_level(fact, level, Doi, Le, Lo, A, B)
-        del D, Do, Lprev, Doi_prev, A, B
-        Ln = -((Lo @ Doi) @ Le)               # T'[2t+2, 2t]
-        del L, Le, Lo, Doi
-        D, L = Dn, Ln
-        level += 1
-    if fact is None:                          # one super-block
-        fact = CA.new_factor(b, m, n3, group, batched, D)
-    CA.pack_root(fact, _inv_block(D[0]))
-    return fact
-
-
-def _cr_apply_cols(fact: CA.CrFactor, r: torch.Tensor,
-                   free: torch.Tensor | None = None) -> torch.Tensor:
-    """Solve T z = r for every column of ``r [*C, N, 3]`` (``[B, *C, N,
-    3]`` for a batch: the CG state's layout, any strides), the rows of
-    vertices not ``free`` (``[N]`` / ``[B, N]``, None: all) zero on read
-    and on write. On the card one launch of the kernel
-    (:data:`ops.cr_apply.CR_APPLY`), elsewhere its plain version."""
-    b = r.shape[0] if fact.batched else 1
-    n = r.shape[-2]
-    c = math.prod(r.shape[1 if fact.batched else 0:-2])
-    r4 = r.reshape(b, c, n, 3)
-    f2 = None if free is None else free.reshape(b, n)
-    if r.is_cuda:
-        z = CA.CR_APPLY(fact, r4, f2)
-    else:
-        z = CA.cr_apply_plain(fact, r4, f2)
-    return z.view(r.shape)
-
-
-def _cr_apply(fact: CA.CrFactor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve T x = rhs ``[n,3,R]`` (``[B, n, 3, R]`` for a batch; any
-    strides) with a :func:`_cr_factor` factorization: the columns as
-    :func:`_cr_apply_cols` takes them, the answer as a view in ``rhs``'s
-    shape."""
-    return _cr_apply_cols(fact, rhs.movedim(-1, -3)).movedim(-3, -1)
-
-
-def _cr_solve(D, L, rhs, group: int = GROUP):
-    """One-shot factor + solve."""
-    return _cr_apply(_cr_factor(D, L, group=group), rhs)
 
 
 class _PrecondState(NamedTuple):
@@ -440,21 +254,21 @@ def _precond_setup(td: _Tridiag, loops) -> _PrecondState:
     li, lj, lJi, lJj, lom, U = loops
     m = li.shape[-1]
 
-    fact = _cr_factor(td.D, td.L)
-    HinvU = _cr_apply(fact, U)                              # [N,3,3M]
+    fact = cr_factor(td.D, td.L)
+    HinvU = cr_apply(fact, U)                               # [N,3,3M]
 
     # S = Ω⁻¹ (block-diagonal) + Uᵀ Hc⁻¹ U   [3M, 3M]
-    UtX = lJi @ _pick(HinvU, li) + lJj @ _pick(HinvU, lj)   # [M,3,3M]
+    UtX = lJi @ pick(HinvU, li) + lJj @ pick(HinvU, lj)     # [M,3,3M]
     if li.dim() == 1:
         S4 = UtX.reshape(m, 3, m, 3).clone()
         ar = torch.arange(m, device=li.device)
-        S4[ar, :, ar, :] += _inv3(lom)
+        S4[ar, :, ar, :] += inv3(lom)
         s_inv = spd_inverse(S4.reshape(3 * m, 3 * m))
     else:
         b = li.shape[0]
         eye_m = torch.eye(m, dtype=lom.dtype, device=li.device)
         S4 = UtX.reshape(b, m, 3, m, 3) + torch.einsum(
-            "bmij,mn->bminj", _inv3(lom), eye_m)
+            "bmij,mn->bminj", inv3(lom), eye_m)
         s_inv = spd_inverse(S4.reshape(b, 3 * m, 3 * m), batch_dims=1)
     # the preconditioner is symmetric
     s_inv = 0.5 * (s_inv + s_inv.transpose(-1, -2))
@@ -473,15 +287,15 @@ def _ut(lJi, lJj, li, lj, x: torch.Tensor) -> torch.Tensor:
         y = (torch.einsum("mij,...mj->...mi", lJi, x[..., li, :])
              + torch.einsum("mij,...mj->...mi", lJj, x[..., lj, :]))
     else:
-        y = (torch.einsum("bmij,b...mj->b...mi", lJi, _rows_of(x, li))
-             + torch.einsum("bmij,b...mj->b...mi", lJj, _rows_of(x, lj)))
+        y = (torch.einsum("bmij,b...mj->b...mi", lJi, rows_of(x, li))
+             + torch.einsum("bmij,b...mj->b...mi", lJj, rows_of(x, lj)))
     return y.reshape(y.shape[:-2] + (-1,))
 
 
 def _precond(pst: _PrecondState, r: torch.Tensor) -> torch.Tensor:
     """M r = (Hc+λI + UΩUᵀ)⁻¹ r via Woodbury, for ``r [..., N, 3]``
     (``[B, ..., N, 3]`` for a batch)."""
-    z = _cr_apply_cols(pst.fact, r)
+    z = cr_apply_cols(pst.fact, r)
     if pst.li.dim() == 1:
         y = _ut(pst.lJi, pst.lJj, pst.li, pst.lj, z) @ pst.s_inv.T
         return z - torch.einsum("ncq,...q->...nc", pst.HinvU, y)
@@ -529,9 +343,6 @@ def _pcg_best(hmv, prec, rhs: torch.Tensor, bn: torch.Tensor, tol2: float,
     def dot(a, b):
         return torch.sum(a * b, dim=(-2, -1))
 
-    def col(v):
-        return v[..., None, None]
-
     x = prec(rhs)
     r = rhs - hmv(x)
     z = prec(r)
@@ -547,8 +358,8 @@ def _pcg_best(hmv, prec, rhs: torch.Tensor, bn: torch.Tensor, tol2: float,
         alpha = torch.where(ok, rz / torch.where(ok, den,
                                                  torch.ones_like(den)),
                             torch.zeros_like(den))
-        x2 = x + col(alpha) * p
-        r2 = rr - col(alpha) * hp
+        x2 = x + per(alpha, p) * p
+        r2 = rr - per(alpha, hp) * hp
         z2 = prec(r2)
         rz2 = dot(r2, z2)
         okb = torch.abs(rz) > 1e-30
@@ -557,12 +368,12 @@ def _pcg_best(hmv, prec, rhs: torch.Tensor, bn: torch.Tensor, tol2: float,
                            torch.zeros_like(rz))
         rr2n = dot(r2, r2)
         better = rr2n < rr2_best
-        xb2 = torch.where(col(better), x2, x_best)
+        xb2 = torch.where(per(better, x2), x2, x_best)
         rb2 = torch.where(better, rr2n, rr2_best)
-        new = (k + 1, x2, r2, z2 + col(beta) * p, rz2, rr2n, xb2, rb2)
+        new = (k + 1, x2, r2, z2 + per(beta, p) * p, rz2, rr2n, xb2, rb2)
         old = (k, x, rr, p, rz, rr2, x_best, rr2_best)
-        return tuple(torch.where(go if a.dim() == go.dim() else col(go),
-                                 a, b) for a, b in zip(new, old)), go
+        return tuple(torch.where(per(go, a), a, b)
+                     for a, b in zip(new, old)), go
 
     s = masked_loop(body, (k0, x, r, z, dot(r, z), rr2, x, rr2), budget,
                     "chain.cg")
@@ -711,35 +522,11 @@ def marginal_covariance_chain(g: PoseGraph, query: torch.Tensor,
         return marginal_covariance_chain(
             permute_vertices(g, order), inv[query.long()], edge_mask,
             loop_cap, cg_tol, cg_iters, None, damp)
-    n = g.poses.shape[-2]
-    dt = g.poses.dtype
-    dev = g.poses.device
     td, _, loops, _ = _assemble(g, edge_mask, loop_cap, damp=damp)
     pst = _precond_setup(td, loops)
-    one = torch.ones((), dtype=dt, device=dev)
-    hmv = lambda v: _h_matvec(td, loops, v)           # noqa: E731
-    prec = lambda r: _precond(pst, r)                 # noqa: E731
-    if g.poses.dim() == 3:
-        b = g.poses.shape[0]
-        q = (query.expand(b, -1) if query.dim() == 1 else query).long()
-        nq = q.shape[1]
-        qs = torch.repeat_interleave(q, 3, dim=1)               # [B,3Q]
-        cs = torch.arange(3, device=dev).repeat(nq)             # [3Q]
-        rhs = ((torch.arange(n, device=dev)[:, None] == qs[..., None, None])
-               & (torch.arange(3, device=dev) == cs[:, None, None])
-               ).to(dt)                                         # [B,3Q,N,3]
-        x = _pcg_best(hmv, prec, rhs, one, cg_tol * cg_tol, cg_iters)
-        cols = torch.gather(x, 2, qs[..., None, None].expand(
-            b, 3 * nq, 1, 3))[:, :, 0]                           # [B,3Q,3]
-        sig = cols.reshape(b, nq, 3, 3).transpose(-1, -2)
-        return 0.5 * (sig + sig.transpose(-1, -2))
-    q = query.shape[0]
-    qs = torch.repeat_interleave(query.long(), 3)               # [3Q]
-    cs = torch.arange(3, device=dev).repeat(q)                  # [3Q]
-    ar = torch.arange(3 * q, device=dev)
-    rhs = torch.zeros((3 * q, n, 3), dtype=dt, device=dev)
-    rhs[ar, qs, cs] = torch.ones((), dtype=dt, device=dev)
-    x = _pcg_best(hmv, prec, rhs, one, cg_tol * cg_tol, cg_iters)
-    cols = x[ar, qs]                                            # [3Q, 3]
-    sig = cols.reshape(q, 3, 3).transpose(-1, -2)               # rows × cols
-    return 0.5 * (sig + sig.transpose(-1, -2))
+    one = torch.ones((), dtype=g.poses.dtype, device=g.poses.device)
+    rhs, rows = unit_columns(query, g.poses)
+    x = _pcg_best(lambda v: _h_matvec(td, loops, v),
+                  lambda r: _precond(pst, r), rhs, one, cg_tol * cg_tol,
+                  cg_iters)
+    return marginal_blocks(x, rows)

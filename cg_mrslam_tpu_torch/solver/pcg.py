@@ -7,14 +7,15 @@ vertex's edge ends (in the order of the solve's segment table,
 the reference scatter-adds; on the card a hand-written kernel pair,
 ``ops/pcg_hvp.py``, on the CPU its plain version) — and CG
 is preconditioned by the damped (chain-tridiagonal +
-full-diagonal) matrix factorized with the chain solver's cyclic
-reduction (its solve on the card one kernel, ``ops/cr_apply.py``). The
-fallback of the chain band for graphs that are not
-``chainable``.
+full-diagonal) matrix factorized by cyclic reduction
+(``solver/cyclic_reduction.py``, shared with the chain band; its solve on
+the card one kernel). The fallback of the chain band for graphs that are
+not ``chainable``.
 
 The reference's ``lax.scan``s of fixed length freeze their state once a
-``done`` test passes; here they are :func:`solver.spd.masked_loop`s with
-the same freeze, which stop early once every system is frozen (the same
+``done`` test passes; here the GN step and the marginal columns run one
+CG body (:func:`_masked_pcg`) as a :func:`solver.spd.masked_loop` with
+the same freeze, which stops early once every system is frozen (the same
 iterates).
 
 Every entry point also takes a graph with a leading batch axis (the
@@ -35,10 +36,13 @@ from cg_mrslam_tpu_torch.core.graph import (PoseGraph, degrees,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
 from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
-from cg_mrslam_tpu_torch.solver.chain import (GROUP, _cr_apply_cols,
-                                              _cr_factor, _rows_of)
+from cg_mrslam_tpu_torch.solver.cyclic_reduction import (GROUP,
+                                                         cr_apply_cols,
+                                                         cr_factor)
 from cg_mrslam_tpu_torch.solver.fixed_sum import (Segments, edge_table,
                                                   ends_sum)
+from cg_mrslam_tpu_torch.solver.gather import (marginal_blocks, rows_of,
+                                               unit_columns)
 from cg_mrslam_tpu_torch.solver.spd import masked_loop, per
 from cg_mrslam_tpu_torch.utils import se2
 from cg_mrslam_tpu_torch.utils.metrics import count, span
@@ -134,7 +138,7 @@ def _tridiag_factor(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
                  nb)
     L[..., n - 1, :, :] = 0.0
 
-    return _cr_factor(D, L, group=GROUP)
+    return cr_factor(D, L, group=GROUP)
 
 
 def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
@@ -144,7 +148,7 @@ def _tridiag_precond(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
     fact = _tridiag_factor(g, f, damp)
 
     def precond(r: torch.Tensor) -> torch.Tensor:
-        return _cr_apply_cols(fact, r, f.free)
+        return cr_apply_cols(fact, r, f.free)
 
     return precond
 
@@ -169,7 +173,7 @@ def _hvp_plain(g: PoseGraph, f: EdgeFactors, x: torch.Tensor):
     xf = x.reshape(x.shape[:nb] + (-1, n, 3))              # [*B, C, N, 3]
 
     def ends(v):                  # x at one end of every edge: [*B, E, C, 3]
-        return (_rows_of(xf, v) if nb else xf[:, v]).movedim(nb, -2)
+        return (rows_of(xf, v) if nb else xf[:, v]).movedim(nb, -2)
 
     xi, xj = ends(vi), ends(vj)
 
@@ -186,6 +190,43 @@ def _dot(a, b):
     return torch.sum(a * b, dim=(-2, -1))
 
 
+def _in_span(name: str, fn):
+    """``fn`` with each call inside the span ``name``."""
+    def call(x):
+        with span(name):
+            return fn(x)
+    return call
+
+
+def _masked_pcg(hvp, precond, rhs: torch.Tensor, z0: torch.Tensor,
+                budget: int, tol: float, name: str, graph: bool,
+                new_residual: bool) -> torch.Tensor:
+    """CG from zero on ``rhs [..., N, 3]``, ``z0 = precond(rhs)``; each
+    system freezes on its own ``done`` test, as the reference's: on the
+    new residual (``new_residual``, the GN step: a step below ``tol`` is
+    not taken) or on the one the iteration starts from (the marginal
+    columns). The loop is :func:`solver.spd.masked_loop` ``name``."""
+    def body(s):
+        x, r, z, p, rz = s
+        hp = hvp(p)
+        alpha = rz / torch.clamp(_dot(p, hp), min=1e-30)
+        x2 = x + per(alpha, p) * p
+        r2 = r - per(alpha, hp) * hp
+        z2 = precond(r2)
+        rz2 = _dot(r2, z2)
+        beta = rz2 / torch.clamp(rz, min=1e-30)
+        p2 = z2 + per(beta, p) * p
+        rt = r2 if new_residual else r
+        done = _dot(rt, rt) < tol
+        new = (x2, r2, z2, p2, rz2)
+        return tuple(torch.where(per(done, o), o, nw)
+                     for o, nw in zip(s, new)), ~done
+
+    x, *_ = masked_loop(body, (torch.zeros_like(rhs), rhs, z0, z0,
+                               _dot(rhs, z0)), budget, name, graph=graph)
+    return x
+
+
 def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
               cg_iters: int = 64, tol: float = 1e-8,
               segs: Segments | None = None,
@@ -197,36 +238,19 @@ def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
     (built here if not given). ``cg_graph``: on the card, replay the CG
     iterations between the host's looks as one captured CUDA graph
     (:func:`solver.spd.masked_loop`), for systems too small to keep the
-    device busy."""
+    device busy. The CG body's spans: ``pcg.hvp`` and
+    ``pcg.precond_apply``."""
     with span("gn.linearize"):
         f = _factorize(g, edge_mask, segs)
     with span("gn.precond"):
         precond = _tridiag_precond(g, f)
 
-    def body(s):
-        x, r, z, p, rz = s
-        with span("pcg.hvp"):
-            hp = _hvp(g, f, p)
-        alpha = rz / torch.clamp(_dot(p, hp), min=1e-30)
-        x2 = x + per(alpha, p) * p
-        r2 = r - per(alpha, hp) * hp
-        with span("pcg.precond_apply"):
-            z2 = precond(r2)
-        rz2 = _dot(r2, z2)
-        beta = rz2 / torch.clamp(rz, min=1e-30)
-        p2 = z2 + per(beta, p) * p
-        done = _dot(r2, r2) < tol
-        new = (x2, r2, z2, p2, rz2)
-        return tuple(torch.where(per(done, o), o, nw)
-                     for o, nw in zip(s, new)), ~done
-
+    hvp = _in_span("pcg.hvp", lambda p: _hvp(g, f, p))
+    apply = _in_span("pcg.precond_apply", precond)
     with span("gn.solve"):
         b = -f.b * _freeb(f.free, f.b)
-        z0 = precond(b)
-        x, *_ = masked_loop(body, (torch.zeros_like(b), b, z0, z0,
-                                   _dot(b, z0)), cg_iters, "pcg.cg",
-                            graph=cg_graph)
-    return x
+        return _masked_pcg(hvp, apply, b, precond(b), cg_iters, tol,
+                           "pcg.cg", cg_graph, new_residual=True)
 
 
 def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
@@ -247,69 +271,22 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
         return marginal_covariance_pcg(permute_vertices(g, order),
                                        inv[query.long()], edge_mask,
                                        cg_iters, tol, cg_graph=cg_graph)
-    dt = g.poses.dtype
-    dev = g.poses.device
     f = _factorize(g, edge_mask)
-    eye = torch.eye(3, dtype=dt, device=dev)
-    n = g.poses.shape[-2]
+    eye = torch.eye(3, dtype=g.poses.dtype, device=g.poses.device)
     precond = _tridiag_precond(g, f)
 
-    def hvp(x):
-        with span("marginal.hvp"):
-            y = _hvp(g, f, x)
-        return y + 1e-6 * x * _freeb(f.free, x)
+    hvp_spanned = _in_span("marginal.hvp", lambda x: _hvp(g, f, x))
 
-    if g.poses.dim() == 3:
-        bsz = g.poses.shape[0]
-        qb = (query.expand(bsz, -1) if query.dim() == 1 else query).long()
-        q = qb.shape[1]
-        qs = torch.repeat_interleave(qb, 3, dim=1)              # [B,3Q]
-        cs = torch.arange(3, device=dev).repeat(q)              # [3Q]
-        rhs = ((torch.arange(n, device=dev)[:, None] == qs[..., None, None])
-               & (torch.arange(3, device=dev) == cs[:, None, None])
-               ).to(dt)                                         # [B,3Q,N,3]
-    else:
-        q = query.shape[0]
-        qs = torch.repeat_interleave(query.long(), 3)              # [3Q]
-        cs = torch.arange(3, device=dev).repeat(q)                 # [3Q]
-        ar = torch.arange(3 * q, device=dev)
-        rhs = torch.zeros((3 * q, n, 3), dtype=dt, device=dev)
-        rhs[ar, qs, cs] = torch.ones((), dtype=dt, device=dev)
+    def hvp(x):                   # the jitter outside the span
+        return hvp_spanned(x) + 1e-6 * x * _freeb(f.free, x)
+
+    apply = _in_span("marginal.precond_apply", precond)
+    rhs, rows = unit_columns(query, g.poses)
     rhs = rhs * _freeb(f.free, rhs)
-
-    def col(v):
-        return v[..., None, None]
-
-    def body(s):
-        x, r, z, p, rz = s
-        hp = hvp(p)
-        alpha = rz / torch.clamp(_dot(p, hp), min=1e-30)
-        x2 = x + col(alpha) * p
-        r2 = r - col(alpha) * hp
-        with span("marginal.precond_apply"):
-            z2 = precond(r2)
-        rz2 = _dot(r2, z2)
-        beta = rz2 / torch.clamp(rz, min=1e-30)
-        p2 = z2 + col(beta) * p
-        done = _dot(r, r) < tol
-        new = (x2, r2, z2, p2, rz2)
-        return tuple(torch.where(per(done, o), o, nw)
-                     for o, nw in zip(s, new)), ~done
-
-    z0 = precond(rhs)
-    x, *_ = masked_loop(body, (torch.zeros_like(rhs), rhs, z0, z0,
-                               _dot(rhs, z0)), cg_iters, "pcg.marginal",
-                        graph=cg_graph)
-    if g.poses.dim() == 3:
-        cols = torch.gather(x, 2, qs[..., None, None].expand(
-            bsz, 3 * q, 1, 3))[:, :, 0]                          # [B,3Q,3]
-        sig = cols.reshape(bsz, q, 3, 3).transpose(-1, -2)
-        sig = torch.where(f.free.gather(1, qb)[..., None, None], sig, eye)
-    else:
-        cols = x[ar, qs]                                           # [3Q, 3]
-        sig = cols.reshape(q, 3, 3).transpose(-1, -2)
-        sig = torch.where(f.free[query.long()][:, None, None], sig, eye)
-    return 0.5 * (sig + sig.transpose(-1, -2))
+    x = _masked_pcg(hvp, apply, rhs, precond(rhs), cg_iters, tol,
+                    "pcg.marginal", cg_graph, new_residual=False)
+    free_q = f.free.gather(-1, rows[..., ::3])
+    return torch.where(free_q[..., None, None], marginal_blocks(x, rows), eye)
 
 
 def optimize_pcg(g: PoseGraph, iterations: int = 5,

@@ -6,8 +6,9 @@ SPD matrix by recursive 2×2 block-Schur inversion down to ≤24×24 blocks
 Newton–Schulz with a restart from the guaranteed-convergent seed
 ``I/‖H‖∞``; :func:`pcg_refine` solves ``H X = B`` by dense CG with that
 inverse as preconditioner and warm start. The reference's
-``chol=False`` solver path (``solver/gauss_newton.py``) and the chain
-band's Woodbury capacitance solve are built on these.
+``chol=False`` solver path (``solver/gauss_newton.py``), the chain
+band's Woodbury capacitance solve and the cyclic reduction's super-block
+inverses (``solver/cyclic_reduction.py``) are built on these.
 
 The reference's ``lax.while_loop`` tolerance exits become loops over the
 static budget in which a ``done`` flag freezes the state: the same

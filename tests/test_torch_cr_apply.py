@@ -5,9 +5,9 @@ CPU (``ops/cr_apply.py``), and a rehearsal of its CUDA kernel
 * The structural claim the compact factor rests on, on random SPD chains
   in float64 (n a multiple of 16 and not, a super-block count a power of
   two and not, batch-1 and batched): every level's ``Le``, ``Lo``, ``A``,
-  ``B`` that ``solver/chain._cr_factor`` computes is exactly zero outside
-  the rows and corners it keeps, and the packed factor's views give back
-  the kept entries bit for bit.
+  ``B`` that ``solver/cyclic_reduction.cr_factor`` computes is exactly
+  zero outside the rows and corners it keeps, and the packed factor's
+  views give back the kept entries bit for bit.
 * The plain solve over the compact factor against a dense oracle kept
   here (the solve over the dense blocks the factorization computed, as
   the solver ran it before the factor was compact): bit for bit, since
@@ -40,11 +40,12 @@ from cg_mrslam_tpu.solver import chain as JCH
 from cg_mrslam_tpu_torch.ops import cr_apply as CA
 from cg_mrslam_tpu_torch.sim import graphs as GR
 from cg_mrslam_tpu_torch.solver import chain as CH
+from cg_mrslam_tpu_torch.solver import cyclic_reduction as CR
 from cg_mrslam_tpu_torch.solver import pcg as P
 
 torch.set_num_threads(1)
 
-BB = 3 * CH.GROUP
+BB = 3 * CR.GROUP
 
 
 def _chain(rng, shape, n):
@@ -58,7 +59,7 @@ def _chain(rng, shape, n):
 
 
 def _captured_factor(d, low, monkeypatch):
-    """``_cr_factor`` of the chain, with the dense blocks it hands the
+    """``cr_factor`` of the chain, with the dense blocks it hands the
     packer each level (``[P, *lead, bb, bb]``) and its root inverse."""
     seen, root = [], []
     pack_level, pack_root = CA.pack_level, CA.pack_root
@@ -73,7 +74,7 @@ def _captured_factor(d, low, monkeypatch):
 
     monkeypatch.setattr(CA, "pack_level", keep_level)
     monkeypatch.setattr(CA, "pack_root", keep_root)
-    fact = CH._cr_factor(torch.as_tensor(d), torch.as_tensor(low))
+    fact = CR.cr_factor(torch.as_tensor(d), torch.as_tensor(low))
     monkeypatch.setattr(CA, "pack_level", pack_level)
     monkeypatch.setattr(CA, "pack_root", pack_root)
     return fact, seen, root[0]
@@ -158,7 +159,7 @@ def test_compact_solve_matches_the_dense_oracle(n, batch, monkeypatch):
     d, low = _chain(rng, shape, n)
     rhs = torch.as_tensor(rng.normal(size=shape + (n, 3, 5)))
     fact, seen, root = _captured_factor(d, low, monkeypatch)
-    got = CH._cr_apply(fact, rhs)
+    got = CR.cr_apply(fact, rhs)
     want = _dense_apply(seen, root, fact.m, n, rhs)
     assert got.shape == rhs.shape
     assert torch.equal(got, want)
@@ -170,8 +171,8 @@ def test_compact_solve_matches_the_jax_package(n, dtype):
     rng = np.random.default_rng(7 + n)
     d, low = (x.astype(dtype) for x in _chain(rng, (), n))
     rhs = rng.normal(size=(n, 3, 4)).astype(dtype)
-    got = CH._cr_solve(torch.as_tensor(d), torch.as_tensor(low),
-                       torch.as_tensor(rhs)).numpy()
+    got = CR.cr_solve(torch.as_tensor(d), torch.as_tensor(low),
+                      torch.as_tensor(rhs)).numpy()
     want = np.asarray(JCH._cr_solve(jnp.asarray(d), jnp.asarray(low),
                                     jnp.asarray(rhs)))
     if dtype == np.float64:
@@ -325,8 +326,8 @@ REHEARSALS = [(70, 2, 3, 1), (96, 1, 5, 2), (33, 3, 9, 2), (128, 2, 3, 2),
 def test_rehearsal_matches_plain(n, b, c, tile, dtype):
     rng = np.random.default_rng(n + c)
     d, low = _chain(rng, (b,), n)
-    fact = CH._cr_factor(torch.as_tensor(d, dtype=dtype),
-                         torch.as_tensor(low, dtype=dtype))
+    fact = CR.cr_factor(torch.as_tensor(d, dtype=dtype),
+                        torch.as_tensor(low, dtype=dtype))
     free = torch.as_tensor(rng.uniform(size=(b, n)) > 0.2)
     free[:, 0] = False
     for name, r in _layouts(rng, b, c, n, dtype).items():
@@ -349,14 +350,14 @@ def test_solve_masks_frozen_rows_on_read_and_write():
     with the frozen rows zeroed."""
     rng = np.random.default_rng(3)
     d, low = _chain(rng, (2,), 40)
-    fact = CH._cr_factor(torch.as_tensor(d), torch.as_tensor(low))
+    fact = CR.cr_factor(torch.as_tensor(d), torch.as_tensor(low))
     free = torch.ones((2, 40), dtype=torch.bool)
     free[0, 5] = free[1, 39] = False
     r = torch.as_tensor(rng.normal(size=(2, 3, 40, 3)))
     noisy = r.clone()
     noisy[~free[:, None, :].expand(2, 3, 40)] = 1e6
     zeroed = torch.where(free[:, None, :, None], r, 0.0)
-    got = CH._cr_apply_cols(fact, noisy, free)
+    got = CR.cr_apply_cols(fact, noisy, free)
     want = CA.cr_apply_plain(fact, zeroed)
     want = torch.where(free[:, None, :, None], want, 0.0)
     assert torch.equal(got, want)
@@ -419,8 +420,8 @@ def test_plan_fits_the_card():
 def test_wrapper_refuses_cpu_and_malformed_inputs():
     rng = np.random.default_rng(5)
     d, low = _chain(rng, (2,), 40)
-    fact = CH._cr_factor(torch.as_tensor(d, dtype=torch.float32),
-                         torch.as_tensor(low, dtype=torch.float32))
+    fact = CR.cr_factor(torch.as_tensor(d, dtype=torch.float32),
+                        torch.as_tensor(low, dtype=torch.float32))
     r = torch.zeros((2, 3, 40, 3))
     free = torch.ones((2, 40), dtype=torch.bool)
     before = CA.CR_APPLY.launches
@@ -443,5 +444,5 @@ def test_wrapper_refuses_cpu_and_malformed_inputs():
         CA.check_inputs(dataclasses.replace(
             fact, packed=fact.packed.t().contiguous().t()), r, free)
     # a CPU solve takes the plain version
-    CH._cr_apply_cols(fact, r, free)
+    CR.cr_apply_cols(fact, r, free)
     assert CA.CR_APPLY.launches == before

@@ -821,6 +821,7 @@ def test_cr_apply_kernel_matches_plain(dev):
     from cg_mrslam_tpu_torch.sim.graphs import (build_hospital_batch,
                                                 build_merged_batch)
     from cg_mrslam_tpu_torch.solver import chain as CH
+    from cg_mrslam_tpu_torch.solver import cyclic_reduction as CR
 
     gen = torch.Generator(dev).manual_seed(6)
     g, order, _ = build_merged_batch(2048, device=dev)
@@ -838,10 +839,10 @@ def test_cr_apply_kernel_matches_plain(dev):
     del r
     one = _first(build_hospital_batch(1, n=1024, closures=48, device=dev))
     td, _, loops, _ = CH._assemble(one, None, 64)
-    fact1 = CH._cr_factor(td.D, td.L)
+    fact1 = CR.cr_factor(td.D, td.L)
     u = loops[-1]                                            # [N, 3, 3M]
     before = CA.CR_APPLY.launches
-    got = CH._cr_apply(fact1, u)
+    got = CR.cr_apply(fact1, u)
     assert CA.CR_APPLY.launches == before + 1 and got.shape == u.shape
     want = _cr_close(fact1, u.movedim(-1, -3)[None])
     assert torch.equal(got, want[0].movedim(-3, -1))

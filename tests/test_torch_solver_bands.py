@@ -38,6 +38,7 @@ from cg_mrslam_tpu.solver import spd as JSPD
 from cg_mrslam_tpu_torch.core import graph as TG
 from cg_mrslam_tpu_torch.core.linearize import chi2 as tchi2
 from cg_mrslam_tpu_torch.solver import chain as TCH
+from cg_mrslam_tpu_torch.solver import cyclic_reduction as TCR
 from cg_mrslam_tpu_torch.solver import gauss_newton as tgn
 from cg_mrslam_tpu_torch.solver import pcg as TPCG
 from cg_mrslam_tpu_torch.solver import spd as TSPD
@@ -265,7 +266,7 @@ def test_cr_solve_and_chain_delta():
     low = 0.3 * rng.normal(size=(n, 3, 3))
     low[-1] = 0
     rhs = rng.normal(size=(n, 3, 2))
-    got = npy(TCH._cr_solve(tf(d), tf(low), tf(rhs)))
+    got = npy(TCR.cr_solve(tf(d), tf(low), tf(rhs)))
     want = np.asarray(JCH._cr_solve(jf(d), jf(low), jf(rhs)))
     _close(got, want, 1e-4, 1e-5)
     jg, tg = _loop_graph()

@@ -41,10 +41,11 @@ from cg_mrslam_tpu_torch.solver import gauss_newton as gn  # noqa: E402
 from cg_mrslam_tpu_torch.solver import pcg as PCG  # noqa: E402
 
 # (module whose global is looked up at the call, name): pcg.py and chain.py
-# import the cyclic reduction and the SPD inverse by name
-PIECES = [(CH, "_cr_factor"), (CH, "_cr_apply_cols"), (CH, "spd_inverse"),
-          (CH, "_h_matvec"), (CH, "_precond"), (PCG, "_cr_factor"),
-          (PCG, "_cr_apply_cols"), (PCG, "_hvp")]
+# import the cyclic reduction (solver/cyclic_reduction.py) and the SPD
+# inverse by name; chain.cr_apply is the Woodbury set-up's Hc⁻¹U solve
+PIECES = [(CH, "cr_factor"), (CH, "cr_apply"), (CH, "cr_apply_cols"),
+          (CH, "spd_inverse"), (CH, "_h_matvec"), (CH, "_precond"),
+          (PCG, "cr_factor"), (PCG, "cr_apply_cols"), (PCG, "_hvp")]
 
 
 class Count(TorchDispatchMode):
