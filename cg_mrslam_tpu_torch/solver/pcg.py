@@ -16,7 +16,8 @@ The reference's ``lax.scan``s of fixed length freeze their state once a
 ``done`` test passes; here the GN step and the marginal columns run one
 CG body (:func:`_masked_pcg`) as a :func:`solver.spd.masked_loop` with
 the same freeze, which stops early once every system is frozen (the same
-iterates).
+iterates); its vector updates are two calls of ``ops/cg_update.py`` an
+iteration (on the card one kernel each, skipping frozen systems).
 
 Every entry point also takes a graph with a leading batch axis (the
 reference ``vmap``s over it) and one ``order`` for every graph: one
@@ -35,6 +36,8 @@ from cg_mrslam_tpu_torch.core.graph import (PoseGraph, degrees,
                                             inverse_permutation,
                                             permute_vertices, unpack_info)
 from cg_mrslam_tpu_torch.core.linearize import linearize
+from cg_mrslam_tpu_torch.ops.cg_update import (cg_update_a, cg_update_b, dot,
+                                               free_mask)
 from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
 from cg_mrslam_tpu_torch.solver.cyclic_reduction import (GROUP,
                                                          cr_apply_cols,
@@ -95,16 +98,6 @@ def _factorize(g: PoseGraph, edge_mask,
     diag = ends_sum(segs.table, Hii, Hjj, nb)
     return EdgeFactors(Ji=Ji, Jj=Jj, omega=omega, b=b, diag=diag, free=free,
                        segs=segs)
-
-
-def _freeb(free: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``free [..., N]`` as a float mask broadcasting against ``like
-    [..., *C, N, 3]`` (a batch's graph axis first)."""
-    fb = free[..., None].to(like.dtype)
-    if free.dim() == 2:
-        fb = fb.reshape((fb.shape[0],) + (1,) * (like.dim() - 3)
-                        + fb.shape[1:])
-    return fb
 
 
 def _tridiag_factor(g: PoseGraph, f: EdgeFactors, damp: float = 1e-3):
@@ -183,11 +176,7 @@ def _hvp_plain(g: PoseGraph, f: EdgeFactors, x: torch.Tensor):
     w = mv(f.omega, mv(f.Ji, xi) + mv(f.Jj, xj))
     y = ends_sum(f.segs.table, mv(f.Ji.transpose(-1, -2), w),
                  mv(f.Jj.transpose(-1, -2), w), nb)
-    return y.movedim(-2, nb).reshape(x.shape) * _freeb(f.free, x)
-
-
-def _dot(a, b):
-    return torch.sum(a * b, dim=(-2, -1))
+    return y.movedim(-2, nb).reshape(x.shape) * free_mask(f.free, x)
 
 
 def _in_span(name: str, fn):
@@ -199,31 +188,39 @@ def _in_span(name: str, fn):
 
 
 def _masked_pcg(hvp, precond, rhs: torch.Tensor, z0: torch.Tensor,
-                budget: int, tol: float, name: str, graph: bool,
-                new_residual: bool) -> torch.Tensor:
-    """CG from zero on ``rhs [..., N, 3]``, ``z0 = precond(rhs)``; each
-    system freezes on its own ``done`` test, as the reference's: on the
-    new residual (``new_residual``, the GN step: a step below ``tol`` is
-    not taken) or on the one the iteration starts from (the marginal
-    columns). The loop is :func:`solver.spd.masked_loop` ``name``."""
-    def body(s):
-        x, r, z, p, rz = s
-        hp = hvp(p)
-        alpha = rz / torch.clamp(_dot(p, hp), min=1e-30)
-        x2 = x + per(alpha, p) * p
-        r2 = r - per(alpha, hp) * hp
-        z2 = precond(r2)
-        rz2 = _dot(r2, z2)
-        beta = rz2 / torch.clamp(rz, min=1e-30)
-        p2 = z2 + per(beta, p) * p
-        rt = r2 if new_residual else r
-        done = _dot(rt, rt) < tol
-        new = (x2, r2, z2, p2, rz2)
-        return tuple(torch.where(per(done, o), o, nw)
-                     for o, nw in zip(s, new)), ~done
+                free: torch.Tensor, budget: int, tol: float, name: str,
+                spans: str, graph: bool, new_residual: bool,
+                jitter: float = 0.0) -> torch.Tensor:
+    """CG from zero on ``rhs [..., N, 3]``, ``z0 = precond(rhs)``, for
+    ``H + jitter·diag(free)`` with ``H p = hvp(p)``; each system freezes
+    on its own ``done`` test, as the reference's: on the new residual
+    (``new_residual``, the GN step: a step below ``tol`` is not taken) or
+    on the one the iteration starts from (the marginal columns). The loop
+    is :func:`solver.spd.masked_loop` ``name``. An iteration: ``hvp``
+    (span ``<spans>.hvp``), update A, ``precond`` (``<spans>.precond_apply``),
+    update B (each update in a span ``<spans>.update``;
+    ``ops/cg_update.py``: on the card one kernel each, writing the loop's
+    own copies of ``rhs`` and ``z0`` in place)."""
+    hvp = _in_span(f"{spans}.hvp", hvp)
+    precond = _in_span(f"{spans}.precond_apply", precond)
+    update = f"{spans}.update"
 
-    x, *_ = masked_loop(body, (torch.zeros_like(rhs), rhs, z0, z0,
-                               _dot(rhs, z0)), budget, name, graph=graph)
+    def body(s):
+        x, r, p, rz, active = s
+        hp = hvp(p)
+        with span(update):
+            x, r, active = cg_update_a(x, r, p, hp, rz, active, free, jitter,
+                                       tol, new_residual)
+        z = precond(r)
+        with span(update):
+            p, rz = cg_update_b(r, z, p, rz, active)
+        return (x, r, p, rz, active), active
+
+    rz = dot(rhs, z0)
+    active = torch.ones(rz.shape, dtype=torch.bool, device=rz.device)
+    x, *_ = masked_loop(body, (torch.zeros_like(rhs), rhs.clone(),
+                               z0.clone(), rz, active), budget, name,
+                        graph=graph)
     return x
 
 
@@ -238,19 +235,17 @@ def pcg_delta(g: PoseGraph, edge_mask: torch.Tensor | None = None,
     (built here if not given). ``cg_graph``: on the card, replay the CG
     iterations between the host's looks as one captured CUDA graph
     (:func:`solver.spd.masked_loop`), for systems too small to keep the
-    device busy. The CG body's spans: ``pcg.hvp`` and
+    device busy. The CG body's spans: ``pcg.hvp``, ``pcg.update`` and
     ``pcg.precond_apply``."""
     with span("gn.linearize"):
         f = _factorize(g, edge_mask, segs)
     with span("gn.precond"):
         precond = _tridiag_precond(g, f)
-
-    hvp = _in_span("pcg.hvp", lambda p: _hvp(g, f, p))
-    apply = _in_span("pcg.precond_apply", precond)
     with span("gn.solve"):
-        b = -f.b * _freeb(f.free, f.b)
-        return _masked_pcg(hvp, apply, b, precond(b), cg_iters, tol,
-                           "pcg.cg", cg_graph, new_residual=True)
+        b = -f.b * free_mask(f.free, f.b)
+        return _masked_pcg(lambda p: _hvp(g, f, p), precond, b, precond(b),
+                           f.free, cg_iters, tol, "pcg.cg", "pcg", cg_graph,
+                           new_residual=True)
 
 
 def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
@@ -264,8 +259,9 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
     ``g.fixed``, the same 1e-6 jitter, the identity block for a queried
     vertex that is not free. A batch takes ``query`` ``[Q]`` (every
     graph) or ``[B, Q]`` and gives ``[B, Q, 3, 3]``. The CG body's spans:
-    ``marginal.hvp`` and ``marginal.precond_apply``. ``cg_graph``: as
-    :func:`pcg_delta`'s."""
+    ``marginal.hvp`` (the product alone: the jitter is added in the
+    update), ``marginal.update`` and ``marginal.precond_apply``.
+    ``cg_graph``: as :func:`pcg_delta`'s."""
     if order is not None:
         inv = inverse_permutation(order).long()
         return marginal_covariance_pcg(permute_vertices(g, order),
@@ -274,17 +270,11 @@ def marginal_covariance_pcg(g: PoseGraph, query: torch.Tensor,
     f = _factorize(g, edge_mask)
     eye = torch.eye(3, dtype=g.poses.dtype, device=g.poses.device)
     precond = _tridiag_precond(g, f)
-
-    hvp_spanned = _in_span("marginal.hvp", lambda x: _hvp(g, f, x))
-
-    def hvp(x):                   # the jitter outside the span
-        return hvp_spanned(x) + 1e-6 * x * _freeb(f.free, x)
-
-    apply = _in_span("marginal.precond_apply", precond)
     rhs, rows = unit_columns(query, g.poses)
-    rhs = rhs * _freeb(f.free, rhs)
-    x = _masked_pcg(hvp, apply, rhs, precond(rhs), cg_iters, tol,
-                    "pcg.marginal", cg_graph, new_residual=False)
+    rhs = rhs * free_mask(f.free, rhs)
+    x = _masked_pcg(lambda p: _hvp(g, f, p), precond, rhs, precond(rhs),
+                    f.free, cg_iters, tol, "pcg.marginal", "marginal",
+                    cg_graph, new_residual=False, jitter=1e-6)
     free_q = f.free.gather(-1, rows[..., ::3])
     return torch.where(free_q[..., None, None], marginal_blocks(x, rows), eye)
 

@@ -57,8 +57,9 @@ def masked_loop(body, state, budget: int, name: str, graph: bool = False):
     ``.problems`` (entries × looks), and ``host_read.<name>`` (its
     looks). With ``graph``, on CUDA tensors and while no profiler
     records, the stretches after the first replay one captured graph of
-    :data:`CHECK` iterations (``body`` must be free of host reads and
-    must not write its inputs)."""
+    :data:`CHECK` iterations (``body`` must be free of host reads). A
+    ``body`` may write its state in place: it then writes the tensors
+    handed in here."""
     looks = active_sum = problems = k = 0
     graph = graph and state[0].is_cuda and not metrics._profiling()
     stretch = None
@@ -94,6 +95,13 @@ def masked_loop(body, state, budget: int, name: str, graph: bool = False):
 _CAPTURE: dict = {}
 
 
+def first_use(body, state) -> None:
+    """One call of a :func:`masked_loop` body that advances nothing: on a
+    copy of ``state``, so that a body that writes its state in place
+    leaves the loop's state as it was (a capture stream's first use)."""
+    body(tuple(s.clone() for s in state))
+
+
 class _GraphedStretch:
     """``steps`` iterations of a :func:`masked_loop` body captured as one
     CUDA graph over a static copy of ``state``: a call copies the state in
@@ -108,7 +116,7 @@ class _GraphedStretch:
             side = torch.cuda.Stream(dev)
             side.wait_stream(main)
             with torch.cuda.stream(side):         # the stream's first use
-                body(state)
+                first_use(body, state)
             _CAPTURE[dev] = [side, torch.cuda.graph_pool_handle(), None]
         side, pool, _ = _CAPTURE[dev]
         self.static = tuple(s.clone() for s in state)
@@ -120,7 +128,8 @@ class _GraphedStretch:
             for _ in range(steps):
                 cur, active = body(cur)
             for dst, src in zip(self.static, cur):
-                dst.copy_(src)
+                if dst is not src:                # not written in place
+                    dst.copy_(src)
             self.graph.capture_end()
         main.wait_stream(side)
         _CAPTURE[dev][2] = self.graph

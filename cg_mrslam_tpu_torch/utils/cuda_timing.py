@@ -13,7 +13,9 @@ CUDA launch timed three ways, the card's line, and the kernels' bounds.
 * :func:`volume_bound` — the least time of one score-volume call on an
   H100 SXM (bytes over the HBM rate, operations over the float32 rate);
   :func:`hvp_bound` the same for one Hessian-vector product of the PCG
-  band (:func:`hvp_scratch_bytes`: what its kernel pair's split adds);
+  band (:func:`hvp_scratch_bytes`: what its kernel pair's split adds),
+  :func:`cr_apply_bound` of its preconditioner's solve and
+  :func:`cg_update_bound` of one of its CG loop's vector updates;
   :func:`issue_floor_ms` — the gather design's issue floor at a given SM
   clock. All are computed, not measured.
 
@@ -144,6 +146,37 @@ def cr_apply_bound(b: int, c: int, n: int, m: int, itemsize: int = 4):
     bytes over the HBM rate against its operations over the float32
     rate."""
     n_bytes, n_ops = cr_apply_work(b, c, n, m, itemsize)
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def cg_update_work(s: int, n: int, update: str, itemsize: int = 4,
+                   jitter: bool = False, graphs: int = 1):
+    """``(bytes, operations)`` of one CG update (``ops/cg_update.py``) over
+    ``s`` active systems of ``n`` poses (``3n`` floats): its own inputs,
+    each read once, and outputs, each written once. Update ``"a"`` reads
+    ``p``, ``hp``, ``r``, ``x``, ``rz``, the flags (and, with the jitter,
+    ``graphs`` rows of ``free``) and writes ``x``, ``r``: 2 operations
+    an element a dot product (two: ``p·hps``, one of the residuals), 2
+    for ``r₂``, 2 for ``x`` (and 3 for the jitter). Update ``"b"`` reads
+    ``r``, ``z``, ``p``, ``rz``, the flags and writes ``p``, ``rz``: 2
+    for ``r·z`` and 2 for ``p``."""
+    el = s * 3 * n
+    if update == "a":
+        n_bytes = (6 * el * itemsize + s * (itemsize + 2)
+                   + (graphs * n if jitter else 0))
+        return n_bytes, (8 + 3 * jitter) * el
+    return 4 * el * itemsize + s * (2 * itemsize + 1), 4 * el
+
+
+def cg_update_bound(s: int, n: int, update: str, itemsize: int = 4,
+                    jitter: bool = False, graphs: int = 1):
+    """``(bound_ms, bound_by)`` of one CG update: :func:`cg_update_work`'s
+    bytes over the HBM rate against its operations over the float32
+    rate."""
+    n_bytes, n_ops = cg_update_work(s, n, update, itemsize, jitter, graphs)
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops

@@ -191,7 +191,19 @@ Phases (nothing is caught; any failure ends the run with a traceback):
    the same factor's float64 solve at most twice the plain version's and
    1e-6 of the scale; in float64 within 1e-9), timed beside the plain
    version and its bytes-or-operations bound (``tools/bench_cr_apply.py``'s
-   record); added to the ``kernels`` record with its main-path launches.
+   record); added to the ``kernels`` record with its main-path launches;
+   (j) the PCG loop's two vector updates (``csrc/cg_update.cu``) at
+   ``fleet_pcg``'s shapes (2048 graphs of 1024 slots), the star's (128
+   graphs × 384 columns), on a batch-1 65,536-pose system (the split path)
+   and in float64: against their plain version on systems some frozen
+   before the call and some freezing in it (within 1e-5 of the scale in
+   float32, 1e-12 in float64; the same done flags; frozen systems
+   untouched bit for bit; repeats bit-equal; bit-equal to the CPU
+   rehearsal of their arithmetic on some systems: ``tools/
+   bench_cg_update.check``), then timed beside the plain version and
+   their bytes bound (``tools/bench_cg_update.py``'s records), with the
+   build time and ``ptxas -v`` report; added to the ``kernels`` record
+   with their main-path launches.
 
 The pair's main-path launches: in phase 6, in phase 12's merged solve on
 the card and in phase 13 (c), (d) and (e)'s 128-candidate star on the
@@ -205,7 +217,9 @@ The same stretches count the cyclic-reduction kernel's launches against
 the preconditioner solves their CG loops make on the card (one per
 iteration, one before each PCG loop, two before each chain-band loop, one
 per chain preconditioner's ``Hc⁻¹U``); each checks the two equal, and (i)'s
-records carry the counts.
+records carry the counts. They count the CG update kernels' calls too,
+each checked to be twice the PCG band's CG iterations (update A and update
+B once each an iteration), which (j)'s records carry.
 
 The card's line comes again just before the ``kernels`` JSON record (every
 kernel and probe record), which is the line before last; the last line is
@@ -351,7 +365,11 @@ def hvp_counted(name: str):
     (``cr_applies``): one per iteration, and before each loop one in the
     PCG band and two in the chain band (its warm start and first
     residual), and one per chain preconditioner built with loop columns
-    (its ``Hc⁻¹U``); the stretch checks that the two are equal."""
+    (its ``Hc⁻¹U``); the stretch checks that the two are equal. The CG
+    update kernels' calls (``cg_update_launches``) are checked against
+    twice the PCG band's iterations: update A and update B each once an
+    iteration."""
+    from cg_mrslam_tpu_torch.ops.cg_update import CG_UPDATE
     from cg_mrslam_tpu_torch.ops.cr_apply import CR_APPLY
     from cg_mrslam_tpu_torch.ops.pcg_hvp import PCG_HVP
     from cg_mrslam_tpu_torch.solver import chain as CH
@@ -384,6 +402,7 @@ def hvp_counted(name: str):
     CH._precond_setup = counted_setup
     PCG_HVP.launches = 0
     CR_APPLY.launches = 0
+    CG_UPDATE.launches = 0
     try:
         yield
     finally:
@@ -393,15 +412,19 @@ def hvp_counted(name: str):
     cr = sum(applies.values())
     HVP_STRETCHES[name] = {"launches": PCG_HVP.launches, "cg_iters": iters,
                            "cr_launches": CR_APPLY.launches,
-                           "cr_applies": cr}
+                           "cr_applies": cr,
+                           "cg_update_launches": CG_UPDATE.launches}
     log(f"pcg_hvp: {name}: {PCG_HVP.launches} launches, {iters} PCG "
         f"iterations ({counted['loop.pcg.cg.iters']} solve, "
         f"{counted['loop.pcg.marginal.iters']} marginal); cr_apply: "
-        f"{CR_APPLY.launches} launches, {cr} solves {dict(applies)}")
+        f"{CR_APPLY.launches} launches, {cr} solves {dict(applies)}; "
+        f"cg_update: {CG_UPDATE.launches} calls")
     assert PCG_HVP.launches == iters > 0, (name, PCG_HVP.launches,
                                            dict(counted))
     assert CR_APPLY.launches == cr > iters, (name, CR_APPLY.launches,
                                              dict(applies))
+    assert CG_UPDATE.launches == 2 * iters, (name, CG_UPDATE.launches,
+                                             iters)
 
 
 def plain_of(args, ty, tx):
@@ -2679,10 +2702,46 @@ def bench_cr_apply(out: list) -> list:
     return recs
 
 
+def bench_cg_update(out: list) -> list:
+    """(j) The PCG loop's two vector updates checked at the benchmark's
+    shapes, on a split 65,536-pose system and in float64, against their
+    plain version, then timed there; returns their kernel records."""
+    from cg_mrslam_tpu_torch.ops import cg_update as CU
+    from cg_mrslam_tpu_torch.ops import correlate as K
+    from tools.bench_cg_update import check_records, records, shapes
+
+    t0 = time.perf_counter()
+    CU.CG_UPDATE._entries(torch.float32)
+    log(f"bench cg_update: cg_update.cu built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s; ptxas -v:\n"
+        f"{K.ptxas_report(CU.SRC)}")
+    for rec in check_records():
+        log(f"bench cg_update: {rec['name']}: plan {rec['plan']}, error "
+            f"over the scale x {rec['err_x']:.3g}, r {rec['err_r']:.3g}, p "
+            f"{rec['err_p']:.3g}, rz {rec['err_rz']:.3g}; {rec['froze']} "
+            f"systems froze in the calls; rehearsed {rec['rehearsed']}")
+        out.append(rec)
+    recs = [rec for shape in shapes(2048, 128) for rec in records(*shape)]
+    for rec in recs:
+        rec.update(route="cuda", source="cg_mrslam_tpu_torch/csrc/"
+                   "cg_update.cu", replaces="none (the JAX package leaves "
+                   "the CG body to XLA)", library_ms=None)
+        log(f"bench cg_update: {rec['name']} {rec['shape']}: ms "
+            f"{rec['ms']:.4f}, device_ms {rec['device_ms']:.5f}, host_us "
+            f"{rec['host_us']:.1f}, bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']} ({100 * rec['bound_share']:.1f}% of it), "
+            f"plain {rec['plain_ms']:.3f} ms, "
+            f"{rec['device_ops_per_call']:.0f} device ops a call "
+            f"(plain {rec['plain_device_ops_per_call']:.0f}), plan "
+            f"{rec['plan']}")
+    out.extend(recs)
+    return recs
+
+
 def phase_bench(matches) -> tuple:
     """Phase 13 (see the module docstring). Writes every workload's record
     to ``chiprun_out/phase13/bench.json``; returns K1's launches by shape
-    in (g), and (h) and (i)'s kernel records."""
+    in (g), and (h), (i) and (j)'s kernel records."""
     PHASE13_DIR.mkdir(parents=True, exist_ok=True)
     out, by_shape, hvp = [], {}, []
     for name, fn in (("dense", lambda: bench_dense(out)),
@@ -2693,7 +2752,9 @@ def phase_bench(matches) -> tuple:
                      ("sol", lambda: bench_sol(out)),
                      ("latency", lambda: by_shape.update(bench_latency(out))),
                      ("hvp", lambda: hvp.extend(bench_hvp(out))),
-                     ("cr_apply", lambda: hvp.extend(bench_cr_apply(out)))):
+                     ("cr_apply", lambda: hvp.extend(bench_cr_apply(out))),
+                     ("cg_update",
+                      lambda: hvp.extend(bench_cg_update(out)))):
         t0 = time.perf_counter()
         fn()
         torch.cuda.empty_cache()
@@ -2974,11 +3035,15 @@ def main() -> int:
         if not rec.get("pair") and "launches_main_path" not in rec:
             rec["launches_srslam_1024"] = k1_1024.get(tuple(rec["shape"]), 0)
     assert len(HVP_STRETCHES) == 6, sorted(HVP_STRETCHES)
-    for rec in hvp_records:       # the pair's and the solve's, over every
-        key = "cr_launches" if "cr_apply" in rec["name"] else "launches"
-        rec.update(launches_main_path=sum(      # shape each ran at
-            v[key] for v in HVP_STRETCHES.values()),
-            launches_by_stretch=dict(HVP_STRETCHES))
+    for rec in hvp_records:       # the pair's, the solve's and each
+        if "cg_update" in rec["name"]:  # update's, over every shape each
+            main = sum(v["cg_update_launches"]           # ran at
+                       for v in HVP_STRETCHES.values()) // 2
+        else:
+            key = "cr_launches" if "cr_apply" in rec["name"] else "launches"
+            main = sum(v[key] for v in HVP_STRETCHES.values())
+        rec.update(launches_main_path=main,
+                   launches_by_stretch=dict(HVP_STRETCHES))
     records += hvp_records
     log(f"bench: phase 13 in {time.perf_counter() - t0:.1f} s")
 

@@ -22,7 +22,12 @@ batch, and launched once per CG iteration; the preconditioner's
 cyclic-reduction kernel (``csrc/cr_apply.cu``) against its plain version
 at the benchmark's shapes, the star's, a chain band's ``Hc⁻¹U`` and in
 float64, bit-equal on repeat and per graph under a permuted batch, and
-launched once per solve; the benchmark cell's optimal-gauge star (128
+launched once per solve; the PCG loop's update kernels
+(``csrc/cg_update.cu``) against their plain version and bit for bit
+against the CPU rehearsal of their arithmetic, at the benchmark's shapes,
+the star's and a split 65,536-pose system, with frozen systems untouched,
+in a CG loop whose captured replay equals the loop as written, and in
+whole PCG solves; the benchmark cell's optimal-gauge star (128
 candidates on the merged fixture) against the plain float64 oracle run on
 the card.
 Every test carries the ``cuda`` marker and skips where there is no NVIDIA
@@ -905,6 +910,133 @@ def test_cr_apply_kernel_launches_once_per_solve(dev, monkeypatch):
         c["loop.pcg.cg.iters"] + c["gn.iters.pcg"]
         + c["loop.pcg.marginal.iters"] + 1), c
 
+
+# The PCG loop's vector updates (csrc/cg_update.cu) against their plain
+# version (ops/cg_update.py) and, bit for bit, against the CPU rehearsal
+# of their arithmetic (tests/test_torch_cg_update.py: the same IEEE
+# operations in the same order): tools/bench_cg_update.check, whose
+# bound on the sums' order is 1e-5 of the scale in float32 and 1e-12 in
+# float64.
+
+
+def test_cg_update_kernels_match_plain_and_rehearsal(dev):
+    """At ``fleet_pcg``'s shapes (2048 graphs of 1024 slots, one system
+    each), at the star's (128 graphs × 384 columns of 1024 slots; the
+    rehearsal on the first graph's columns), on a batch-1 65,536-pose
+    system (64 blocks: the split path) and in float64."""
+    from cg_mrslam_tpu_torch.ops import cg_update as CU
+    from tools.bench_cg_update import CHECKS, check
+
+    assert CU.plan(3 * 1024).chunks == 1 and CU.plan(3 * 65536).chunks > 1
+    for lead, n, dt, seed, graphs, rehearse in CHECKS:
+        check(lead, n, getattr(torch, dt), seed, graphs, rehearse, dev)
+        torch.cuda.empty_cache()
+
+
+def test_cg_loop_kernels_freeze_and_replay(dev):
+    """The CG loop with the kernels on small SPD systems that freeze at
+    several iterations, some at the first (``tests/
+    test_torch_cg_update._problem``): a frozen system's ``x`` stays bit for
+    bit; ``pcg._masked_pcg``'s captured replay (``graph=True``) equals the
+    loop as written bit for bit; and the card's ``x`` is within 1e-4 of
+    the CPU's plain loop (a system whose residual sits at the tolerance
+    may freeze an iteration apart: one step, ~√tol / λmin; 4e-6 measured
+    between the plain version and the rehearsal on the CPU)."""
+    from test_torch_cg_update import _problem
+
+    from cg_mrslam_tpu_torch.ops import cg_update as CU
+    from cg_mrslam_tpu_torch.solver import pcg as P
+
+    for dtype, tol in ((torch.float32, 1e-9), (torch.float64, 1e-14)):
+        hvp, pre, rhs, free = _problem(dtype, (8, 16), 40)
+        want = P._masked_pcg(hvp, pre, rhs, pre(rhs), free, 64, tol,
+                             "test.cpu", "test", False, False, 1e-6)
+        hvp, pre, rhs, free = _problem(dtype, (8, 16), 40, device=dev)
+        outs = []
+        for graph in (False, True, False):
+            before = CU.CG_UPDATE.launches
+            outs.append(P._masked_pcg(hvp, pre, rhs, pre(rhs), free, 64, tol,
+                                      "test.card", "test", graph, False,
+                                      1e-6))
+            if not graph:
+                assert CU.CG_UPDATE.launches - before == 2 * 64
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0],
+                                                             outs[2])
+        scale = float(want.abs().max())
+        assert float((outs[0].cpu() - want).abs().max()) <= 1e-4 * scale
+
+        x, r = torch.zeros_like(rhs), rhs.clone()
+        p = pre(rhs)
+        rz = CU.dot(rhs, p)
+        active = torch.ones(rz.shape, dtype=torch.bool, device=dev)
+        froze = torch.full(rz.shape, -1, device=dev)
+        for k in range(64):
+            was, x_was = active.clone(), x.clone()
+            CU.cg_update_a(x, r, p, hvp(p), rz, active, free, 1e-6, tol,
+                           False)
+            CU.cg_update_b(r, pre(r), p, rz, active)
+            froze[was & ~active] = k
+            assert torch.equal(x[~was], x_was[~was])
+        assert torch.equal(x, outs[0])
+        stops = set(froze.flatten().tolist())
+        assert 0 in stops and len(stops - {-1}) >= 3, stops
+
+
+def test_pcg_solves_with_the_update_kernels_match_plain_updates(
+        dev, monkeypatch):
+    """Whole ``pcg_delta`` steps (``optimize_pcg``, GN×2) and
+    ``marginal_covariance_pcg`` on 8 merged graphs, and one ``pcg_delta``
+    on a batch-1 65,536-pose hospital ring (the split path), the update
+    kernels against the plain updates on the card (the HVP and
+    preconditioner kernels in both): in float64 within 1e-9 of the
+    answers' scale, in float32 within 2e-3 (64 and 96 CG iterations, each
+    moved in its last bits by the sums' order, which CG carries and a GN
+    step's linearization amplifies). Each update kernel launches twice a
+    CG iteration."""
+    from cg_mrslam_tpu_torch.ops import cg_update as CU
+    from cg_mrslam_tpu_torch.sim.graphs import (build_hospital_batch,
+                                                build_merged_batch)
+    from cg_mrslam_tpu_torch.solver import pcg as P
+    from cg_mrslam_tpu_torch.utils import metrics as M
+
+    g, order, _ = build_merged_batch(8, device=dev)
+    q = torch.arange(100, 300, 25, device=dev)
+
+    def solve(gr):
+        poses = P.optimize_pcg(gr, 2, order=order, cg_iters=64).poses
+        cov = P.marginal_covariance_pcg(
+            dataclasses.replace(gr, poses=poses), q, cg_iters=96,
+            order=order)
+        return poses, cov
+
+    def ring_step(gr):
+        return (P.pcg_delta(gr, cg_iters=64),)
+
+    def plain_a(x, r, p, hp, rz, active, free, sigma, tol, new_residual):
+        return CU.update_a_plain(x, r, p, hp, rz, active, free, sigma, tol,
+                                 new_residual)
+
+    g64 = dataclasses.replace(g, **{k: getattr(g, k).double()
+                                    for k in ("poses", "e_z", "e_info")})
+    ring = _first(build_hospital_batch(1, n=65536, closures=16, device=dev))
+    assert CU.plan(3 * 65536).chunks > 1
+    for fn, gr, rel in ((solve, g, 2e-3), (solve, g64, 1e-9),
+                        (ring_step, ring, 2e-3)):
+        monkeypatch.setattr(M, "_profiling", lambda: True)
+        M.reset()
+        before = CU.CG_UPDATE.launches
+        got = fn(gr)
+        c = M.counts()
+        M.reset()
+        assert CU.CG_UPDATE.launches - before == 2 * (
+            c["loop.pcg.cg.iters"] + c.get("loop.pcg.marginal.iters", 0)), c
+        monkeypatch.setattr(P, "cg_update_a", plain_a)
+        monkeypatch.setattr(P, "cg_update_b", CU.update_b_plain)
+        want = fn(gr)
+        monkeypatch.undo()
+        for a, b in zip(got, want):
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= rel * float(b.abs().max())
 
 def test_occupancy_on_the_card_matches_cpu(dev, live_graph):
     """``integrate`` on the card against the CPU on a live graph: the same

@@ -377,7 +377,7 @@ def test_one_optimal_star_records_its_spans_and_counters(merged):
     M.reset()
     for name in ("star.optimal", "condense.settle", "condense.marginals",
                  "condense.label", "marginal.hvp", "marginal.precond_apply",
-                 "marginal.pcg"):
+                 "marginal.update", "marginal.pcg"):
         assert name in spans, name
     assert spans["star.optimal"]["calls"] == 1
     assert spans["condense.marginals"]["calls"] == 1
@@ -385,6 +385,8 @@ def test_one_optimal_star_records_its_spans_and_counters(merged):
     assert "band.pcg" not in under_marginals
     assert "marginal.pcg" in under_marginals
     assert spans["marginal.hvp"]["calls"] == counts["loop.pcg.marginal.iters"]
+    assert spans["marginal.update"]["calls"] \
+        == 2 * counts["loop.pcg.marginal.iters"]
     assert counts["condense.graphs"] == 2
     assert counts["condense.columns"] == 2 * 3 * 3
     assert counts["host_read.gauge_candidates"] == 1

@@ -89,7 +89,7 @@ def test_tracing_keeps_the_bits(band, single):
 
 
 BAND_SPANS = ("gn.linearize", "gn.precond", "gn.solve", "gn.update",
-              "pcg.hvp", "pcg.precond_apply")
+              "pcg.hvp", "pcg.update", "pcg.precond_apply")
 
 
 @pytest.mark.parametrize("single", [False, True], ids=["batch", "one"])
@@ -123,13 +123,15 @@ def test_pcg_solve_spans_and_counters(single):
         inner = M.span_totals(under=outer)
         assert set(inner) == set(tot) - set(nest[:i + 1])
         assert all(inner[k]["calls"] == tot[k]["calls"] for k in inner)
-    assert set(M.span_totals(under="gn.solve")) == {"pcg.hvp",
-                                                   "pcg.precond_apply"}
+    assert set(M.span_totals(under="gn.solve")) == {
+        "pcg.hvp", "pcg.update", "pcg.precond_apply"}
     assert M.span_totals(under="pcg.hvp") == {}
+    assert M.span_totals(under="pcg.update") == {}
     for name in ("gn.linearize", "gn.precond", "gn.solve", "gn.update"):
         assert tot[name]["calls"] == GN_ITERS
     assert tot["pcg.hvp"]["calls"] == tot["pcg.precond_apply"]["calls"] \
         == iters
+    assert tot["pcg.update"]["calls"] == 2 * iters
     for t in tot.values():
         assert 0 <= t["self_s"] <= t["host_s"] == t["device_s"]
     if not single:

@@ -41,11 +41,13 @@ from cg_mrslam_tpu_torch.solver import gauss_newton as gn  # noqa: E402
 from cg_mrslam_tpu_torch.solver import pcg as PCG  # noqa: E402
 
 # (module whose global is looked up at the call, name): pcg.py and chain.py
-# import the cyclic reduction (solver/cyclic_reduction.py) and the SPD
-# inverse by name; chain.cr_apply is the Woodbury set-up's Hc⁻¹U solve
+# import the cyclic reduction (solver/cyclic_reduction.py), the SPD
+# inverse and the CG loop's updates (ops/cg_update.py) by name;
+# chain.cr_apply is the Woodbury set-up's Hc⁻¹U solve
 PIECES = [(CH, "cr_factor"), (CH, "cr_apply"), (CH, "cr_apply_cols"),
           (CH, "spd_inverse"), (CH, "_h_matvec"), (CH, "_precond"),
-          (PCG, "cr_factor"), (PCG, "cr_apply_cols"), (PCG, "_hvp")]
+          (PCG, "cr_factor"), (PCG, "cr_apply_cols"), (PCG, "_hvp"),
+          (PCG, "cg_update_a"), (PCG, "cg_update_b")]
 
 
 class Count(TorchDispatchMode):
